@@ -1,0 +1,161 @@
+"""Synthetic SemanticKITTI-shaped scans: host-side NumPy pipeline.
+
+A copy of the synthetic-scan part of `link_tpu/data/semantic_kitti.py`
+(which itself follows the reference segmentation/core/datasets/
+semantic_kitti.py:99-344), kept here so the port imports nothing of the
+JAX package. Same semantics and the same random stream per seed:
+  * train aug: random z-rotation, scale U[0.95, 1.05], 4-way flip;
+  * voxelization: round(xyz / voxel_size), subtract per-scan min, dedup
+    keeping the first point per voxel;
+  * train cap `num_points` voxels via random choice;
+  * voxels emitted in pack-key order (batch, z, y, x).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+NUM_CLASSES = 20
+
+# Static coordinate-domain bound in meters for the (min-shifted) quantized
+# coords process_scan emits: 2 * 80 m * 1.05 horizontally, < 22 m in z.
+GRID_EXTENT_M = (179.2, 179.2, 22.4)
+
+
+def grid_extent(voxel_size: float = 0.05, batch_size: int = 1):
+    """(nx, ny, nz, nb) static domain bound at a given quantization, e.g.
+    (3584, 3584, 448, 1) at 0.05 m."""
+    return tuple(int(np.ceil(m / voxel_size)) for m in GRID_EXTENT_M) + (
+        int(batch_size),)
+
+
+def ravel_hash(x: np.ndarray) -> np.ndarray:
+    """torchsparse utils/quantize.py:10-21."""
+    assert x.ndim == 2
+    x = x - np.min(x, axis=0)
+    x = x.astype(np.uint64, copy=False)
+    xmax = np.max(x, axis=0).astype(np.uint64) + 1
+    h = np.zeros(x.shape[0], dtype=np.uint64)
+    for k in range(x.shape[1] - 1):
+        h += x[:, k]
+        h *= xmax[k + 1]
+    h += x[:, -1]
+    return h
+
+
+def sparse_quantize(coords: np.ndarray):
+    """Dedup int voxel coords; returns (coords, index, inverse)."""
+    _, indices, inverse = np.unique(ravel_hash(coords), return_index=True,
+                                    return_inverse=True)
+    return coords[indices], indices, inverse
+
+
+def augment(points: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Random z-rot + global scale + 4-way flip."""
+    theta = rng.uniform(0, 2 * np.pi)
+    scale = rng.uniform(0.95, 1.05)
+    rot = np.array([[np.cos(theta), np.sin(theta), 0],
+                    [-np.sin(theta), np.cos(theta), 0],
+                    [0, 0, 1]])
+    out = points.copy()
+    out[:, :3] = out[:, :3] @ rot * scale
+    flip = rng.choice(4)
+    if flip == 1:
+        out[:, 0] = -out[:, 0]
+    elif flip == 2:
+        out[:, 1] = -out[:, 1]
+    elif flip == 3:
+        out[:, :2] = -out[:, :2]
+    return out
+
+
+def process_scan(points: np.ndarray, labels: np.ndarray, voxel_size: float,
+                 num_points: int, train: bool,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+    """points (N, 4) float32 [x y z intensity]; labels (N,) int remapped."""
+    if train:
+        points = augment(points, rng or np.random.default_rng())
+    pc = np.round(points[:, :3] / voxel_size).astype(np.int32)
+    pc -= pc.min(0, keepdims=True)
+
+    coords, inds, inverse = sparse_quantize(pc)
+    subsampled = train and len(inds) > num_points
+    if subsampled:
+        inds = (rng or np.random.default_rng()).choice(
+            inds, num_points, replace=False)
+        coords = pc[inds]
+
+    # pack-key order (batch, z, y, x); voxel selection is unchanged
+    perm = np.lexsort((coords[:, 0], coords[:, 1], coords[:, 2]))
+    coords = coords[perm]
+    inds = inds[perm]
+    if not subsampled:
+        rank = np.empty(len(perm), np.int32)
+        rank[perm] = np.arange(len(perm), dtype=np.int32)
+        inverse = rank[inverse]
+    return {
+        "feats": points[inds].astype(np.float32),
+        "coords": coords.astype(np.int32),
+        "labels": labels[inds].astype(np.int32),
+        "point_labels": labels.astype(np.int32),
+        "inverse_map": inverse.astype(np.int32),
+    }
+
+
+def synthetic_scan(rng: np.random.Generator, n_points: int = 120000,
+                   voxel_size: float = 0.05) -> Dict:
+    """Synthetic LiDAR scan with HDL-64-like beam geometry (64 elevation
+    rings x azimuth grid): downward beams hit the ground plane, a quarter of
+    the rays hit vertical surfaces at sampled ranges."""
+    n_az = max(64, n_points // 64)
+    az = np.linspace(0, 2 * np.pi, n_az, endpoint=False)
+    el = np.deg2rad(np.linspace(-24.8, 2.0, 64))
+    az_g, el_g = np.meshgrid(az, el)
+    az_g = (az_g + rng.normal(0, 1e-3, az_g.shape)).ravel()
+    el_g = el_g.ravel()
+
+    sensor_z = 1.73
+    with np.errstate(divide="ignore"):
+        r_ground = np.where(el_g < -1e-3, sensor_z / np.tan(-el_g), 120.0)
+    hit_obj = rng.random(el_g.shape) < 0.25
+    r_obj = np.exp(rng.uniform(np.log(2.5), np.log(60.0), el_g.shape))
+    r = np.where(hit_obj, np.minimum(r_obj, r_ground), r_ground)
+    r = np.clip(r + rng.normal(0, 0.02, r.shape), 2.0, 80.0)
+
+    x = r * np.cos(el_g) * np.cos(az_g)
+    y = r * np.cos(el_g) * np.sin(az_g)
+    z = sensor_z + r * np.sin(el_g) - 1.73
+    keep = rng.random(x.shape) < min(1.0, n_points / x.size)
+    xyz = np.stack([x, y, z], 1)[keep].astype(np.float32)
+    intensity = rng.uniform(0, 1, (len(xyz), 1)).astype(np.float32)
+    points = np.concatenate([xyz, intensity], 1)
+    labels = np.where(hit_obj[keep], rng.integers(1, 20, len(xyz)),
+                      9).astype(np.int64)
+    return {"points": points, "labels": labels}
+
+
+class SyntheticSemanticKITTI:
+    """Synthetic stand-in for SemanticKITTI; scan i is made from seed + i."""
+
+    def __init__(self, length: int = 64, voxel_size: float = 0.05,
+                 num_points: int = 80000, split: str = "train", seed: int = 0,
+                 n_raw_points: int = 120000):
+        self.length = length
+        self.voxel_size = voxel_size
+        self.num_points = num_points
+        self.split = split
+        self.seed = seed
+        self.n_raw = n_raw_points
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index: int) -> Dict:
+        gen = np.random.default_rng(self.seed + index)
+        scan = synthetic_scan(gen, self.n_raw, self.voxel_size)
+        out = process_scan(scan["points"], scan["labels"], self.voxel_size,
+                           self.num_points, self.split == "train", gen)
+        out["file_name"] = f"synthetic/{index:06d}.bin"
+        return out

@@ -1,0 +1,147 @@
+"""torch.nn modules over SparseTensor: conv, norm, linear, activation.
+
+PyTorch counterpart of `link_tpu/nn/modules.py`. Parameter names and
+layouts follow the reference torchsparse modules, so a reference
+`state_dict` loads directly: `SparseConv3d.kernel` is (K, Ci, Co) ((Ci, Co)
+for a 1x1x1 kernel), `Linear.weight` is torch's (out, in), and
+`SparseBatchNorm` keeps BatchNorm1d's parameters and buffers.
+
+Parameters are drawn on the CPU from an optional `torch.Generator` and then
+moved to `device`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..sparse import conv as spconv
+from ..sparse import coords as coordlib
+from ..sparse.tensor import SparseTensor
+
+
+def _uniform(shape, bound: float, generator, device) -> nn.Parameter:
+    w = torch.empty(shape, dtype=torch.float32).uniform_(
+        -bound, bound, generator=generator)
+    return nn.Parameter(w.to(device))
+
+
+class SparseConv3d(nn.Module):
+    """Sparse conv; weight layout (K, Ci, Co) and the reference's uniform
+    1/sqrt(fan * K) init (torchsparse nn/modules/conv.py:36-64)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Tuple[int, ...]] = 3,
+                 stride: Union[int, Tuple[int, ...]] = 1, dilation: int = 1,
+                 transposed: bool = False,
+                 out_capacity: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size = coordlib.make_ntuple(kernel_size)
+        self.stride = stride
+        self.dilation = dilation
+        self.transposed = transposed
+        self.out_capacity = out_capacity
+        kv = int(np.prod(self.kernel_size))
+        fan = out_channels if transposed else in_channels
+        std = 1.0 / math.sqrt(fan * kv)
+        shape = ((kv, in_channels, out_channels) if kv > 1
+                 else (in_channels, out_channels))
+        self.kernel = _uniform(shape, std, generator, device)
+
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        return spconv.conv3d(st, self.kernel, kernel_size=self.kernel_size,
+                             stride=self.stride,
+                             dilation=self.dilation,
+                             transposed=self.transposed,
+                             out_capacity=self.out_capacity)
+
+
+class SparseBatchNorm(nn.Module):
+    """BatchNorm over the valid voxel rows (BatchNorm1d semantics: eps 1e-5,
+    momentum 0.1, biased variance to normalize, unbiased for the running
+    estimate). Eval mode uses the running statistics."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, device=None):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, device=device))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long, device=device))
+
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        f32 = st.feats.to(torch.float32)
+        if self.training:
+            mask = st.valid_mask().to(torch.float32)[:, None]
+            n = torch.clamp(mask.sum(), min=1.0)
+            mean = (f32 * mask).sum(0) / n
+            var = torch.clamp((f32.square() * mask).sum(0) / n
+                              - mean.square(), min=0.0)
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        out = (f32 - mean) * inv + self.bias
+        return st.replace(feats=out.to(st.feats.dtype))
+
+
+class SparseLayerNorm(nn.Module):
+    """LayerNorm over the channel dim, in float32, eps 1e-6 as in the ELK
+    blocks; returns the input dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        f32 = feats.to(torch.float32)
+        mean = f32.mean(-1, keepdim=True)
+        var = (f32 - mean).square().mean(-1, keepdim=True)
+        out = (f32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return out.to(feats.dtype)
+
+
+class Linear(nn.Module):
+    """Dense layer with torch nn.Linear's default init bound 1/sqrt(fan_in).
+    The weight is rounded to the input dtype, the product summed in float32
+    and rounded back; an f32 bias promotes the result as in the JAX model."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        std = 1.0 / math.sqrt(in_features)
+        self.weight = _uniform((out_features, in_features), std, generator,
+                               device)
+        self.bias = (_uniform((out_features,), std, generator, device)
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        y = (x.to(torch.float32) @ self.weight.to(dt).to(torch.float32).T).to(dt)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class SparseReLU(nn.Module):
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        return st.replace(feats=torch.relu(st.feats))

@@ -1,0 +1,129 @@
+"""ELK pre-aggregation ops: voxel <-> aux-block transforms.
+
+PyTorch counterpart of `link_tpu/ops/elk.py`:
+  * voxel_to_aux: coarsen coords by s, dedup, mean-pool voxel feats into
+    aux blocks;
+  * aux_to_voxel: count-weighted mean over each aux cell's r^3 window of
+    aux cells, broadcast back to the voxels. The window's self-join runs
+    through `CoordTable.query` (the `sorted_join` kernel); the window sum is
+    a plain gather-sum;
+  * elk_aux_window_dense: the same result on a dense aux grid (odd r only),
+    gated by use_dense_aux.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..sparse import coords as coordlib
+from ..sparse import ops as spops
+from ..sparse.dense_grid import box_sum
+from ..sparse.tensor import SparseTensor
+
+# Dense-aux path budget: bytes of the f32 (cells, C+1) aux grid.
+DENSE_AUX_MAX_BYTES = 256 * 1024 * 1024
+
+
+def aux_grid_shape(x: SparseTensor, s: int):
+    """RAW-extent (nx, ny, nz, nb) bound of x's coord domain, or None."""
+    if x.grid_extent is not None:
+        return tuple(int(v) for v in x.grid_extent)
+    return None
+
+
+def use_dense_aux(x: SparseTensor, s: int, r: int, channels: int):
+    """Gate + grid shape for the dense-aux path (odd r, bounded domain,
+    grid within DENSE_AUX_MAX_BYTES)."""
+    if r % 2 != 1:
+        return None
+    gs = aux_grid_shape(x, s)
+    if gs is None:
+        return None
+    nxr, nyr, nzr, nb = (int(v) for v in gs)
+    cells = nb * (-(-nxr // s)) * (-(-nyr // s)) * (-(-nzr // s))
+    if cells * (channels + 1) * 4 > DENSE_AUX_MAX_BYTES:
+        return None
+    return gs
+
+
+def elk_aux_window_dense(mod: torch.Tensor, coords: torch.Tensor, s: int,
+                         r: int, grid_shape) -> torch.Tensor:
+    """Fused voxel_to_aux + aux_to_voxel on a dense aux grid: scatter-add
+    the feats and an occupancy count into the s^3-block grid, take the
+    centered r^3 box sum, and gather each voxel's result by its cell."""
+    if r % 2 != 1:
+        raise ValueError("dense aux window requires odd r")
+    nxr, nyr, nzr, nb = (int(v) for v in grid_shape)
+    nxa, nya, nza = -(-nxr // s), -(-nyr // s), -(-nzr // s)
+    cells = nb * nza * nya * nxa
+    c = mod.shape[1]
+    x, y, z, b = coords[:, 0], coords[:, 1], coords[:, 2], coords[:, 3]
+    valid = ((x >= 0) & (x < nxr) & (y >= 0) & (y < nyr)
+             & (z >= 0) & (z < nzr) & (b >= 0) & (b < nb))
+    lin = (((b.long() * nza + z // s) * nya + y // s) * nxa + x // s)
+    lin = torch.where(valid, lin, torch.full_like(lin, cells))
+    sums = torch.zeros((cells + 1, c), dtype=torch.float32, device=mod.device)
+    sums.index_add_(0, lin, torch.where(valid[:, None], mod.to(torch.float32),
+                                        0.0))
+    cnts = torch.zeros(cells + 1, dtype=torch.float32, device=mod.device)
+    cnts.index_add_(0, lin, valid.to(torch.float32))
+    grid = sums[:cells].reshape(nb, nza, nya, nxa, c)
+    cgrid = cnts[:cells].reshape(nb, nza, nya, nxa, 1)
+    win = box_sum(grid, r)
+    wc = box_sum(cgrid, r)[..., 0]
+    new = win / torch.where(wc == 0, torch.ones_like(wc), wc)[..., None]
+    flat = torch.cat([new.reshape(cells, c), new.new_zeros((1, c))])
+    return flat[lin].to(mod.dtype)
+
+
+def _div_coords(coords: torch.Tensor, s: int) -> torch.Tensor:
+    """(x, y, z) // s with the batch column kept; sentinel rows unchanged."""
+    xyz = coords[:, :3]
+    is_pad = coords[:, :1] <= coordlib.INVALID_COORD
+    div = torch.where(is_pad, xyz, torch.div(xyz, s, rounding_mode="floor"))
+    return torch.cat([div, coords[:, 3:]], dim=1)
+
+
+def voxel_to_aux(x: SparseTensor, s: int, aux_capacity: int):
+    """Pool voxels into s^3 aux blocks.
+
+    Returns (aux, idx_query, counts): aux cells keyed by the divided coords
+    (floor(coord / s), batch); voxel -> aux slot (-1 for padding rows);
+    voxels per aux cell."""
+    aux_coords, idx_query, aux_nnz = coordlib.unique_coords(
+        _div_coords(x.coords, s), aux_capacity)
+    counts = spops.spcount(idx_query, aux_capacity)
+    aux_feats = spops.spvoxelize(x.feats, idx_query, counts)
+    aux = SparseTensor(feats=aux_feats, coords=aux_coords, nnz=aux_nnz,
+                       stride=(s, s, s), cmaps=x.cmaps, kmaps=x.kmaps,
+                       base_sorted=x.base_sorted, coords_sorted=True)
+    return aux, idx_query, counts
+
+
+def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
+                 counts: torch.Tensor, r: int = 2) -> SparseTensor:
+    """Sum features over the r^3 window of aux cells around each aux cell,
+    weighted by voxel counts, renormalize by the window's total count, and
+    broadcast back to the voxels of `x`. The count channel is appended as an
+    all-ones feature, as the reference does."""
+    offsets = coordlib.kernel_offsets_np((r, r, r), stride=1, dilation=1)
+    # aux coords come from unique_coords, so they are already in key order
+    table = coordlib.build_table(aux.coords, assume_sorted=True)
+    offs = torch.tensor(offsets, dtype=torch.int32, device=aux.device)
+    q = torch.cat([aux.coords[None, :, :3] + offs[:, None, :],
+                   aux.coords[None, :, 3:].expand(offs.shape[0], -1, -1)],
+                  dim=-1)
+    nb_idx = table.query(q).T                                  # (M_aux, r^3)
+
+    f = torch.cat([aux.feats, aux.feats.new_ones((aux.capacity, 1))], dim=1)
+    f = f * counts.to(aux.feats.dtype)[:, None]
+    window = spops.spdevoxelize(f, nb_idx, torch.ones_like(nb_idx,
+                                                           dtype=f.dtype))
+    denom = window[:, -1:]
+    new_feat = window[:, :-1] / torch.where(denom == 0,
+                                            torch.ones_like(denom), denom)
+
+    safe = torch.where(idx_query >= 0, idx_query,
+                       torch.full_like(idx_query, new_feat.shape[0])).long()
+    ext = torch.cat([new_feat, new_feat.new_zeros((1, new_feat.shape[1]))])
+    return x.replace(feats=ext[safe])

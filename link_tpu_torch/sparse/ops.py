@@ -1,0 +1,81 @@
+"""Functional sparse ops: count / voxelize / devoxelize / downsample.
+
+PyTorch counterpart of `link_tpu/sparse/ops.py` (forward only). Scatter
+reductions are index-adds into a table with one extra dump row, which takes
+the misses (idx == -1) and is cut off.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+from . import coords as coordlib
+
+
+def _dump_index(idx: torch.Tensor, dump: int) -> torch.Tensor:
+    return torch.where(idx >= 0, idx, torch.full_like(idx, dump)).long()
+
+
+def spcount(idx: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Histogram of non-negative indices."""
+    safe = _dump_index(idx, num_segments)
+    out = torch.zeros(num_segments + 1, dtype=torch.int32, device=idx.device)
+    out.index_add_(0, safe, torch.ones_like(safe, dtype=torch.int32))
+    return out[:num_segments]
+
+
+def spvoxelize(feats: torch.Tensor, idx: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Mean-pool N rows into M segments by idx map (-1 = dropped); count 0
+    gives zeros. Sums in float32 whatever the feature dtype."""
+    m = counts.shape[0]
+    safe = _dump_index(idx, m)
+    summed = torch.zeros((m + 1, feats.shape[1]), dtype=torch.float32,
+                         device=feats.device)
+    summed.index_add_(0, safe, feats.to(torch.float32))
+    denom = torch.clamp(counts, min=1).to(torch.float32)[:, None]
+    return (summed[:m] / denom).to(feats.dtype)
+
+
+def spdevoxelize(feats: torch.Tensor, idx: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """Weighted gather-sum: out[i] = sum_k w[i, k] * feats[idx[i, k]];
+    idx -1 contributes zero. Sums in float32."""
+    n_in, c = feats.shape
+    ext = torch.cat([feats, feats.new_zeros((1, c))])
+    safe = _dump_index(idx, n_in)
+    w = torch.where(idx >= 0, weights, torch.zeros_like(weights)).to(
+        feats.dtype)
+    acc = torch.zeros((idx.shape[0], c), dtype=torch.float32,
+                      device=feats.device)
+    for k in range(idx.shape[1]):
+        acc += (ext[safe[:, k]] * w[:, k, None]).to(torch.float32)
+    return acc.to(feats.dtype)
+
+
+def spdownsample(coords: torch.Tensor, out_capacity: int,
+                 stride: Union[int, Tuple[int, ...]] = 2,
+                 kernel_size: Union[int, Tuple[int, ...]] = 2,
+                 tensor_stride: Union[int, Tuple[int, ...]] = 1):
+    """Strided coordinate downsample, fast path only (stride == kernel_size
+    or stride == 1 per axis). Returns (out_coords, out_nnz); coordinates
+    keep original units (multiples of stride * tensor_stride)."""
+    stride = coordlib.make_ntuple(stride)
+    kernel_size = coordlib.make_ntuple(kernel_size)
+    tensor_stride = coordlib.make_ntuple(tensor_stride)
+    if not all(stride[k] in (1, kernel_size[k]) for k in range(3)):
+        raise NotImplementedError(
+            "general (offset-expansion) downsample: stride must be 1 or "
+            "kernel_size on every axis")
+    ss = torch.tensor([s * t for s, t in zip(stride, tensor_stride)],
+                      dtype=torch.int32, device=coords.device)
+    xyz = coords[:, :3]
+    # sentinel rows must stay sentinel after the floor division
+    is_pad = xyz[:, :1] <= coordlib.INVALID_COORD
+    new_xyz = torch.where(is_pad, xyz,
+                          torch.div(xyz, ss, rounding_mode="floor") * ss)
+    new_coords = torch.cat([new_xyz, coords[:, 3:]], dim=1)
+    out_coords, _, out_nnz = coordlib.unique_coords(new_coords, out_capacity)
+    return out_coords, out_nnz
