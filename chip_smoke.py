@@ -1,23 +1,39 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`link_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py                  # all phases, one card
 
 Phases, in order (any failure raises and the script exits non-zero):
-  1. build   compile every CUDA kernel from `link_tpu_torch/csrc/` with nvcc
-             (sm_90a) and print the card's name and power limit;
-  2. kernels hold each kernel against its plain PyTorch twin at the main
-             path's shapes (84,992-row tables from a synthetic 80k-voxel
-             scan), and time kernel, twin and the library yardstick;
-  3. golden  ELKUNet cr1.0 float32 (TF32 off) at DEFAULT_CAPACITIES on the
-             real 80k-voxel scan of tests/goldens/elkunet_cr1.0_fullscale.npz
-             with the reference weights, against the reference logits;
-  4. main    the main path: bfloat16 ELKUNet cr1.0 with seeded random
-             weights on 4 synthetic 80k-voxel scans, with the launch counts
-             of both kernels read around one pass, and scans/s;
-  5. profile one more pass of the main path under torch.profiler: device
-             time by kernel, and the device's idle share against the
-             unprofiled wall time of phase 4.
+  1. build       compile every CUDA kernel from `link_tpu_torch/csrc/` with
+                 nvcc (sm_90a), all sources at once, and print the card's
+                 name and power limit;
+  2. kernels     hold each kernel against its plain PyTorch twin at the seg
+                 path's shapes (84,992-row tables from a synthetic 80k-voxel
+                 scan), and time kernel, twin and the library yardstick;
+  3. golden      ELKUNet cr1.0 float32 (TF32 off) at DEFAULT_CAPACITIES on
+                 the real 80k-voxel scan of
+                 tests/goldens/elkunet_cr1.0_fullscale.npz with the
+                 reference weights, against the reference logits;
+  4. main        the seg path: bfloat16 ELKUNet cr1.0 with seeded random
+                 weights on 4 synthetic 80k-voxel scans, with the launch
+                 counts of the kernels read around one pass, and scans/s;
+  5. profile     one more pass of the seg path under torch.profiler: device
+                 time by kernel, and the device's idle share against the
+                 unprofiled wall time of phase 4;
+  6. det_kernels `window_conv` and both modes of `sorted_join` against
+                 their twins at the det path's shapes (163,840-row level 0
+                 and 81,920-row level 1 of one synthetic 160k-voxel
+                 nuScenes frame), timed with twin and library yardstick;
+  7. det_golden  the RPN + CenterHead in float32 (TF32 off) with the
+                 reference weights of tests/goldens/det_dense.npz against its
+                 RPN output and head maps;
+  8. det_main    the det serving path: SingleFramePredictor, bfloat16
+                 CenterPoint-ELKv3 with seeded random weights at the 160k
+                 val capacity, on 2 synthetic frames: launch counts of the
+                 kernels around one pass, frames/s of forward + decode, ms per
+                 end-to-end `predict` (host voxelize and NMS included), boxes;
+  9. det_profile one det forward + decode per frame under torch.profiler:
+                 device time by kernel and the device's idle share.
 
 Output: `#`-prefixed progress lines, then a line with the card's name and
 power limit (nvidia-smi), then one JSON line {"kernels": [...]} with each
@@ -40,8 +56,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "goldens", "elkunet_cr1.0_fullscale.npz")
+DET_GOLDEN = os.path.join(HERE, "tests", "goldens", "det_dense.npz")
 OUT_JSON = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
-PHASES = ("build", "kernels", "golden", "main", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and per-type rates.
 # int32 on the CUDA cores runs at half the float32 rate (64 INT32 lanes vs
@@ -54,6 +70,7 @@ BF16_REL_TOL = 8e-3   # kernel vs twin, bf16: both round the f32 sum once to
 #                       bf16 (half-ulp 2^-9); a different summation order can
 #                       move a value across a rounding boundary: one ulp 2^-8
 GOLDEN_REL_TOL = 2e-4  # as the JAX package's golden parity tests
+DET_GOLDEN_REL_TOL = 1e-5  # as tests/test_golden_det_dense.py
 
 
 def log(msg: str) -> None:
@@ -151,6 +168,58 @@ def _conv_case(kernels, feats, idx, weight, iters):
     return case
 
 
+def _join_case(kernels, C, table, coords, offsets, mode, iters):
+    """sorted_join vs its twin in one mode, on the queries coords + each
+    offset: exact agreement, times, bound, and the library call
+    (`torch.searchsorted`, plus the hit test in mode "exact")."""
+    import torch
+    offs = torch.tensor(np.asarray(offsets), dtype=torch.int32,
+                        device=coords.device)
+    q = torch.cat([coords[None, :, :3] + offs[:, None, :],
+                   coords[None, :, 3:].expand(len(offs), -1, -1)], -1)
+    q_hi, q_lo = C.pack_coords(q.reshape(-1, 4))
+    args = (table.hi, table.lo, table.perm, q_hi, q_lo)
+    got = kernels.sorted_join(*args, mode=mode)
+    want = kernels.sorted_join_plain(*args, mode=mode)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    if mismatches:
+        raise AssertionError(f"sorted_join {mode}: {mismatches} of "
+                             f"{got.numel()} results differ from the twin")
+    n, nq = table.hi.numel(), q_hi.numel()
+    tkey = kernels.key64(table.hi, table.lo)
+    qkey = kernels.key64(q_hi, q_lo)
+
+    def library():
+        pos = torch.searchsorted(tkey, qkey).clamp_(max=n - 1)
+        if mode == "lower_bound":
+            return pos
+        hit = (tkey[pos] == qkey) & (q_hi != C.INT32_MAX)
+        return torch.where(hit, table.perm[pos], -1)
+
+    # table keys (and perm in mode exact) read once, queries read, results
+    # written; ~3 int32 operations per search probe
+    probes = math.ceil(math.log2(n + 1))
+    t_bytes = ((3 if mode == "exact" else 2) * n * 4
+               + 3 * nq * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3.0 * nq * probes / PEAK_OPS["int32"] * 1e3
+    case = {
+        "shape": f"N={n} Q={nq} int32 {mode}",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: kernels.sorted_join(*args, mode=mode), iters),
+        "plain_ms": cuda_ms(lambda: kernels.sorted_join_plain(
+            *args, mode=mode), iters),
+        "library_ms": cuda_ms(library, iters),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    log(f"sorted_join {case['shape']}: equal to the twin, kernel "
+        f"{case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, searchsorted "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']})")
+    return case
+
+
 def phase_kernels(res, ctx, iters=20):
     import torch
     from link_tpu_torch.ops import kernels
@@ -164,46 +233,11 @@ def phase_kernels(res, ctx, iters=20):
     n = st.capacity
     log(f"kernel inputs: scan 0, {int(st.nnz)} voxels in {n} rows")
 
-    # --- sorted_join: 84,992-row table, 27 x 84,992 queries (stem plan)
+    # --- sorted_join, exact mode: 84,992-row table, 27 x 84,992 queries,
+    # the one join of the stem's submanifold plan
     table = C.build_table(st.coords, assume_sorted=True)
-    offs = torch.tensor(C.kernel_offsets_np(3), dtype=torch.int32, device=dev)
-    q = torch.cat([st.coords[None, :, :3] + offs[:, None, :],
-                   st.coords[None, :, 3:].expand(27, -1, -1)], -1)
-    q_hi, q_lo = C.pack_coords(q.reshape(-1, 4))
-    args = (table.hi, table.lo, table.perm, q_hi, q_lo)
-    got = kernels.sorted_join(*args)
-    want = kernels.sorted_join_plain(*args)
-    torch.cuda.synchronize()
-    mismatches = int((got != want).sum())
-    if mismatches:
-        raise AssertionError(f"sorted_join: {mismatches} of {got.numel()} "
-                             "results differ from the twin")
-    tkey = kernels.key64(table.hi, table.lo)
-    qkey = kernels.key64(q_hi, q_lo)
-
-    def library_join():
-        pos = torch.searchsorted(tkey, qkey).clamp_(max=n - 1)
-        hit = (tkey[pos] == qkey) & (q_hi != C.INT32_MAX)
-        return torch.where(hit, table.perm[pos], -1)
-
-    nq = q_hi.numel()
-    probes = math.ceil(math.log2(n + 1))
-    t_bytes = (3 * n * 4 + 3 * nq * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = 3.0 * nq * probes / PEAK_OPS["int32"] * 1e3
-    join = {
-        "shape": f"N={n} Q={nq} int32",
-        "max_abs_err": 0.0, "hits": int((got >= 0).sum()),
-        "ms": cuda_ms(lambda: kernels.sorted_join(*args), iters),
-        "plain_ms": cuda_ms(lambda: kernels.sorted_join_plain(*args), iters),
-        "library_ms": cuda_ms(library_join, iters),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
-    log(f"sorted_join {join['shape']}: exact, kernel {join['ms']:.4f} ms, "
-        f"twin {join['plain_ms']:.4f} ms, searchsorted "
-        f"{join['library_ms']:.4f} ms, bound {join['bound_ms']:.4f} ms "
-        f"({join['bound_by']}), hits {join['hits']}")
-    res["sorted_join"] = join
+    res["sorted_join"] = _join_case(kernels, C, table, st.coords,
+                                    C.kernel_offsets_np(3), "exact", iters)
 
     # --- gather_conv at the main path's shapes
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -337,65 +371,302 @@ def phase_main(res, ctx, n_scans=4, rounds=3):
     ctx.update(model=model, scans=scans, fresh=fresh)
 
 
-def phase_profile(res, ctx):
-    """Device time by kernel over one pass of the main path's scans."""
+def _profile(run, n_items: int, wall_ms: float, unit: str):
+    """Device time by kernel over `run()` under torch.profiler, per item,
+    and the idle share against the unprofiled wall time per item."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model, scans, fresh = ctx["model"], ctx["scans"], ctx["fresh"]
-    with torch.inference_mode():
-        inputs = [fresh(st) for st in scans]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for x in inputs:
-                model(x)
-            torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / len(scans)
-    wall_ms = 1e3 / max(res["scans_per_s"])
-    by_name = sorted(((e.self_device_time_total / 1e3 / len(scans), e.count
-                       // len(scans), e.key) for e in kern), reverse=True)
-    res["profile"] = {
-        "device_busy_ms_per_scan": busy_ms or None,
-        "wall_ms_per_scan": wall_ms,
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_items
+    by_name = sorted(((e.self_device_time_total / 1e3 / n_items, e.count
+                       // n_items, e.key) for e in kern), reverse=True)
+    out = {
+        f"device_busy_ms_per_{unit}": busy_ms or None,
+        f"wall_ms_per_{unit}": wall_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-        "launches_per_scan": sum(e.count for e in kern) / len(scans),
+        f"launches_per_{unit}": sum(e.count for e in kern) / n_items,
         "kernel_kinds": len(kern),
-        "kernels": [{"ms_per_scan": t, "launches_per_scan": c, "name": k[:160]}
-                    for t, c, k in by_name[:25]],
+        "kernels": [{f"ms_per_{unit}": t, f"launches_per_{unit}": c,
+                     "name": k[:160]} for t, c, k in by_name[:25]],
     }
     if not busy_ms:
         log("profile: no device time in the trace (not measured)")
-        return
-    log(f"profile: device busy {busy_ms:.2f} ms per scan of {wall_ms:.2f} ms "
-        f"wall (idle share {1 - busy_ms / wall_ms:.3f}); "
-        f"{res['profile']['launches_per_scan']:.0f} kernel launches per scan "
+        return out
+    log(f"profile: device busy {busy_ms:.2f} ms per {unit} of {wall_ms:.2f} "
+        f"ms wall (idle share {1 - busy_ms / wall_ms:.3f}); "
+        f"{out[f'launches_per_{unit}']:.0f} kernel launches per {unit} "
         f"of {len(kern)} kinds")
     for t, c, k in by_name[:12]:
         log(f"  {t:8.3f} ms {t / busy_ms:6.1%} x{c:<5d} {k[:90]}")
+    return out
+
+
+def phase_profile(res, ctx):
+    """Device time by kernel over one pass of the seg path's scans."""
+    import torch
+    model, scans, fresh = ctx["model"], ctx["scans"], ctx["fresh"]
+    with torch.inference_mode():
+        inputs = [fresh(st) for st in scans]
+        res["profile"] = _profile(lambda: [model(x) for x in inputs],
+                                  len(scans), 1e3 / max(res["scans_per_s"]),
+                                  "scan")
+
+
+# --------------------------------------------------------------------------
+# detection serving path
+
+
+def _det_frame(index: int):
+    """One synthetic nuScenes frame: raw points and the collated batch at
+    the 160k val cap (capacity 163,840), as SingleFramePredictor makes it."""
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.data.nuscenes import SyntheticNuScenes
+    from link_tpu_torch.models.scn import DET_CAPACITIES
+    ds = SyntheticNuScenes(length=index + 1, mode="val", seed=0,
+                           max_voxels=160000)
+    return ds.points(index), dp.collate_det([ds[index]], DET_CAPACITIES[0])
+
+
+def _window_case(kernels, feats, plan, weight, iters):
+    """window_conv vs its twin on one plan: error, times, bound."""
+    import torch
+    args = (feats, plan.base_pos, plan.slot, plan.groups, weight)
+    got = kernels.window_conv(*args)
+    want = kernels.window_conv_plain(*args)
+    torch.cuda.synchronize()
+    dt = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
+    err = rel_err(got, want)
+    tol = BF16_REL_TOL if dt == "bfloat16" else F32_REL_TOL
+    n, ci = feats.shape
+    k, m = plan.slot.shape
+    gg = plan.base_pos.shape[0]
+    co = weight.shape[2]
+    isz = feats.element_size()
+    hits = int((plan.slot >= 0).sum())
+    nbytes = (n * ci * isz + gg * m * 4 + k * m + k * ci * co * isz
+              + m * co * isz)
+    ops = 2.0 * hits * ci * co
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    case = {
+        "shape": f"N=M={m} G={plan.window} K={k} Ci={ci} Co={co} {dt}",
+        "rel_err": err, "tol": tol,
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": cuda_ms(lambda: kernels.window_conv(*args), iters),
+        "plain_ms": cuda_ms(lambda: kernels.window_conv_plain(*args), iters),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "hits": hits,
+    }
+    log(f"window_conv {case['shape']}: rel err {err:.3g} (tol {tol}), "
+        f"kernel {case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, "
+        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), hits {hits}")
+    if not err < tol:
+        raise AssertionError(f"window_conv {case['shape']}: rel err {err} "
+                             f">= {tol}")
+    return case
+
+
+def phase_det_kernels(res, ctx, iters=20):
+    import torch
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse import coords as C
+    from link_tpu_torch.sparse.conv import add_window_form, build_conv_plan
+    from link_tpu_torch.sparse.spconv_engine import (spconv_downsample,
+                                                     spconv_out_shape)
+    from link_tpu_torch.models.scn import DET_CAPACITIES
+
+    dev = torch.device("cuda")
+    _, batch = _det_frame(0)
+    coords = torch.from_numpy(batch["coords"]).to(dev)
+    nnz = torch.tensor(int(batch["nnz"]), dtype=torch.int32, device=dev)
+    n = coords.shape[0]
+    log(f"det kernel inputs: frame 0, {int(batch['nnz'])} voxels in {n} rows")
+    offs = C.kernel_offsets_np(3)
+
+    # --- sorted_join on the 163,840-row level-0 table: exact mode, the
+    # SubM plan's 27 taps per row; lower-bound mode, its window form's 9
+    # group anchors per row
+    table = C.build_table(coords, assume_sorted=True)
+    res["sorted_join_det_exact"] = _join_case(kernels, C, table, coords,
+                                              offs, "exact", iters)
+    res["sorted_join_lower_bound"] = _join_case(
+        kernels, C, table, coords, [a for a, _ in C.offset_groups(offs)],
+        "lower_bound", iters)
+
+    # --- window_conv on the level-0 and level-1 SubM plans
+    plan0 = add_window_form(build_conv_plan(coords, coords, nnz, offs, n,
+                                            in_sorted=True, table=table),
+                            table, offs, 1)
+    shape1 = spconv_out_shape((1440, 1440, 41), (3, 3, 3), (2, 2, 2),
+                              (1, 1, 1))
+    c1, nnz1 = spconv_downsample(coords, (3, 3, 3), (2, 2, 2), (1, 1, 1),
+                                 shape1, DET_CAPACITIES[1])
+    table1 = C.build_table(c1, assume_sorted=True)
+    plan1 = add_window_form(build_conv_plan(c1, c1, nnz1, offs, c1.shape[0],
+                                            in_sorted=True, table=table1),
+                            table1, offs, 1)
+    log(f"det level 1: {int(nnz1)} voxels in {c1.shape[0]} rows")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for plan, ci, co in ((plan0, 16, 16), (plan0, 5, 16),
+                             (plan1, 32, 32)):
+            m = plan.slot.shape[1]
+            cases.append(_window_case(
+                kernels, rand((m, ci), dtype), plan,
+                rand((27, ci, co), dtype, (ci * 27) ** -0.5), iters))
+    res["window_conv_cases"] = cases
+
+
+def phase_det_golden(res, ctx):
+    import torch
+    from link_tpu_torch.models.center_head import CenterHead
+    from link_tpu_torch.models.rpn import RPN
+
+    g = np.load(DET_GOLDEN)
+    sd = {k[3:].replace("__", "."): torch.from_numpy(np.array(g[k]))
+          for k in g.files if k.startswith("sd_")}
+    neck = RPN(device="cuda")
+    neck.load_state_dict({k[5:]: v for k, v in sd.items()
+                          if k.startswith("neck.")}, strict=True)
+    head = CenterHead(device="cuda")
+    head.load_state_dict({k[10:]: v for k, v in sd.items()
+                          if k.startswith("bbox_head.")}, strict=True)
+    neck.eval()
+    head.eval()
+    with torch.inference_mode():
+        rpn_out = neck(torch.from_numpy(g["bev"]).cuda())
+        preds = head(torch.from_numpy(g["rpn_out"]).cuda())
+    errs = {"rpn_out": rel_err(rpn_out, torch.from_numpy(g["rpn_out"]).cuda())}
+    for t, pd in enumerate(preds):
+        for name, v in pd.items():
+            want = torch.from_numpy(g[f"task{t}_{name}"]).cuda()
+            errs[f"task{t}_{name}"] = rel_err(v.permute(0, 3, 1, 2), want)
+    worst = max(errs, key=errs.get)
+    res["det_golden_rel_err"] = errs
+    log(f"det golden RPN + CenterHead f32: {len(errs)} maps, worst rel err "
+        f"{errs[worst]:.3g} ({worst}; tol {DET_GOLDEN_REL_TOL})")
+    if not all(v < DET_GOLDEN_REL_TOL for v in errs.values()):
+        raise AssertionError(f"det golden: {worst} rel err {errs[worst]}")
+
+
+def phase_det_main(res, ctx, n_frames=2, rounds=3):
+    import torch
+    from link_tpu_torch.inference import SingleFramePredictor
+    from link_tpu_torch.models.scn import SubMConv3d
+    from link_tpu_torch.nn.modules import SparseConv3d
+    from link_tpu_torch.ops import kernels
+
+    frames = [_det_frame(i) for i in range(n_frames)]
+    pred = SingleFramePredictor(dtype="bfloat16", seed=0, device="cuda")
+    batches = [b for _, b in frames]
+    pred.forward(batches[0])                                  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    outs = [pred.forward(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            pred.forward(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    predict_ms, kept = [], []
+    for points, _ in frames:
+        t0 = time.perf_counter()
+        det = pred.predict(points)
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append(len(det["scores"]))
+        if not (np.isfinite(det["box3d_lidar"]).all()
+                and np.isfinite(det["scores"]).all()):
+            raise AssertionError("non-finite boxes from predict")
+
+    for out in outs:
+        for boxes, scores, labels, mask in out:
+            if boxes.shape != (1, 180 * 180, 9):
+                raise AssertionError(f"boxes shape {tuple(boxes.shape)}")
+            if not torch.isfinite(boxes[mask]).all():
+                raise AssertionError("non-finite boxes on the det path")
+    convs = sum(1 for mod in pred.model.modules()
+                if isinstance(mod, SubMConv3d)
+                or (isinstance(mod, SparseConv3d)
+                    and math.prod(mod.kernel_size) > 1)) + 4  # 3 downs + extra
+    # 4 SubM levels (exact join + the window form's lower bound each),
+    # 3 downs and the extra conv (exact join each)
+    plans = 4 * 2 + 4
+    per_frame = {k: v / n_frames for k, v in launches.items()}
+    res["det_launches"] = launches
+    res["det_frames_per_s"] = [n_frames / t for t in times]
+    res["det_predict_ms"] = predict_ms
+    res["det_boxes_kept"] = kept
+    res["det_nnz"] = [int(b["nnz"]) for b in batches]
+    log(f"det path bf16, {n_frames} frames ({res['det_nnz']} voxels): "
+        f"launches per frame {per_frame} (expected sorted_join {plans}, "
+        f"window_conv + gather_conv {convs}); forward + decode frames/s per "
+        f"round {[round(v, 3) for v in res['det_frames_per_s']]}; predict "
+        f"ms per frame {[round(v, 1) for v in predict_ms]}; boxes kept {kept}")
+    if (launches["sorted_join"] != n_frames * plans
+            or launches["window_conv"] + launches["gather_conv"]
+            != n_frames * convs
+            or min(launches.values()) == 0):
+        raise AssertionError(f"det launch counts {launches} differ from the "
+                             f"expected {plans} joins and {convs} convs per "
+                             "frame, or a kernel was not launched")
+    res["det_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    ctx.update(pred=pred, det_batches=batches)
+
+
+def phase_det_profile(res, ctx):
+    pred, batches = ctx["pred"], ctx["det_batches"]
+    res["det_profile"] = _profile(
+        lambda: [pred.forward(b) for b in batches], len(batches),
+        1e3 / max(res["det_frames_per_s"]), "frame")
 
 
 def kernels_line(res):
+    """One entry per kernel: launches summed over the seg and det paths'
+    counted passes; errors and times at a shape each path runs (join: the
+    seg stem plan's exact join; gather_conv: seg K=27 64-ch f32;
+    window_conv: det level-0 16-ch f32). The join's other shapes and its
+    lower-bound mode are in chiprun_out/chip_smoke.json."""
     src = "link_tpu_torch/csrc/"
     rep = "link_tpu/ops/pallas_kernels.py:"
-    join = res["sorted_join"]
-    conv = res["gather_conv_cases"][0]          # K=27, Ci=Co=64, float32
-    launches = res["launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    return {"kernels": [
-        {"name": "sorted_join", "route": "cuda",
-         "source": src + "sorted_join.cu", "replaces": rep + "62",
-         "launches": launches["sorted_join"],
-         **{k: join[k] for k in keys}},
-        {"name": "gather_conv", "route": "cuda",
-         "source": src + "gather_conv.cu", "replaces": rep + "111",
-         "launches": launches["gather_conv"],
-         **{k: conv[k] for k in keys}},
-    ]}
+    seg, det = res["launches"], res["det_launches"]
+    entries = []
+    for name, case, line in (
+            ("sorted_join", res["sorted_join"], "62"),
+            ("gather_conv", res["gather_conv_cases"][0], "111"),
+            ("window_conv", res["window_conv_cases"][0], "179")):
+        entries.append({
+            "name": name, "route": "cuda", "source": src + name + ".cu",
+            "replaces": rep + line,
+            "launches": seg.get(name, 0) + det.get(name, 0),
+            **{k: case[k] for k in keys},
+            "launches_by_path": {"seg": seg.get(name, 0),
+                                 "det": det.get(name, 0)}})
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -418,14 +689,13 @@ def main() -> int:
     card = card_line()
     res["card"] = card
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
-    steps = {"build": phase_build, "kernels": phase_kernels,
-             "golden": phase_golden, "main": phase_main,
-             "profile": phase_profile}
     ctx = {}
-    for p in PHASES:
+    for phase in (phase_build, phase_kernels, phase_golden, phase_main,
+                  phase_profile, phase_det_kernels, phase_det_golden,
+                  phase_det_main, phase_det_profile):
         t0 = time.perf_counter()
-        steps[p](res, ctx)
-        log(f"phase {p}: {time.perf_counter() - t0:.1f} s")
+        phase(res, ctx)
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     res["total_s"] = time.perf_counter() - t_start
 
     os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)

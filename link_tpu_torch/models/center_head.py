@@ -1,0 +1,139 @@
+"""CenterHead: CenterPoint multi-task detection head and box decode.
+
+PyTorch counterpart of `link_tpu/models/center_head.py` (reference
+detection/det3d/models/bbox_heads/center_head.py:67-446), inference path
+with `dcn_head=False` (every published LinK config). Six task groups over
+the nuScenes classes; per task a SepHead with branches reg(2) / height(1) /
+dim(3) / rot(2) / vel(2) / hm(C), each Conv3x3 + BN + ReLU -> Conv3x3 (hm's
+final bias -2.19). Module layout and `state_dict` keys follow the
+reference (`shared_conv.0.weight`, `tasks.0.reg.3.bias`, ...). As in the
+JAX package the head returns per-task dicts of NHWC maps, and the decode
+runs in float32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from .rpn import _DTYPES, run_dense
+
+HEAD_NORM = dict(eps=1e-5, momentum=0.1)
+NUSC_TASKS = (("car",), ("truck", "construction_vehicle"),
+              ("bus", "trailer"), ("barrier",), ("motorcycle", "bicycle"),
+              ("pedestrian", "traffic_cone"))
+COMMON_HEADS = (("reg", (2, 2)), ("height", (1, 2)), ("dim", (3, 2)),
+                ("rot", (2, 2)), ("vel", (2, 2)))
+
+
+def head_branch(cin: int, out_channels: int, num_conv: int,
+                head_conv: int = 64, final_kernel: int = 3,
+                init_bias: float = None, device=None) -> nn.Sequential:
+    """(num_conv - 1) x [Conv + BN + ReLU] then the final biased conv."""
+    layers = []
+    c = cin
+    for _ in range(num_conv - 1):
+        layers += [nn.Conv2d(c, head_conv, final_kernel,
+                             padding=final_kernel // 2, bias=True,
+                             device=device),
+                   nn.BatchNorm2d(head_conv, **HEAD_NORM, device=device),
+                   nn.ReLU()]
+        c = head_conv
+    final = nn.Conv2d(c, out_channels, final_kernel,
+                      padding=final_kernel // 2, bias=True, device=device)
+    with torch.no_grad():
+        if init_bias is not None:
+            final.bias.fill_(init_bias)
+        else:
+            final.bias.zero_()
+    return nn.Sequential(*layers, final)
+
+
+class SepHead(nn.Module):
+    def __init__(self, cin: int, num_cls: int, num_hm_conv: int = 2,
+                 init_bias: float = -2.19, device=None):
+        super().__init__()
+        for name, (ch, ncv) in COMMON_HEADS:
+            self.add_module(name, head_branch(cin, ch, ncv, device=device))
+        self.hm = head_branch(cin, num_cls, num_hm_conv, init_bias=init_bias,
+                              device=device)
+
+    def forward(self, h: torch.Tensor) -> Dict[str, torch.Tensor]:
+        names = [n for n, _ in COMMON_HEADS] + ["hm"]
+        return {n: run_dense(getattr(self, n), h).permute(0, 2, 3, 1)
+                for n in names}
+
+
+class CenterHead(nn.Module):
+
+    def __init__(self, in_channels: int = 512,
+                 tasks: Tuple[Tuple[str, ...], ...] = NUSC_TASKS,
+                 share_conv_channel: int = 64, num_hm_conv: int = 2,
+                 init_bias: float = -2.19, dtype: str = "float32",
+                 device="cuda"):
+        super().__init__()
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+        self.dtype = _DTYPES[dtype]
+        self.num_classes = [len(t) for t in tasks]
+        self.shared_conv = nn.Sequential(
+            nn.Conv2d(in_channels, share_conv_channel, 3, padding=1,
+                      bias=True, device=device),
+            nn.BatchNorm2d(share_conv_channel, **HEAD_NORM, device=device),
+            nn.ReLU())
+        self.tasks = nn.ModuleList([
+            SepHead(share_conv_channel, len(t), num_hm_conv, init_bias,
+                    device=device) for t in tasks])
+
+    def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        """x: (B, C, H, W) -> per-task dicts of (B, H, W, c) maps."""
+        h = run_dense(self.shared_conv, x.to(self.dtype))
+        return [task(h) for task in self.tasks]
+
+
+def decode_boxes(preds: List[Dict[str, torch.Tensor]], test_cfg: Dict,
+                 num_classes: Sequence[int]):
+    """center_head.py:296-446 decode without NMS (link_tpu/models/
+    center_head.py:223-273, double_flip off): per task (boxes (B, H*W, 9)
+    [x y z w l h vx vy rot], scores (B, H*W), labels (B, H*W) int32 with
+    global class offsets, mask (B, H*W) = score above the threshold and
+    centre inside the post-centre range). Decodes in float32."""
+    out = []
+    pc_range = test_cfg["pc_range"]
+    voxel_size = test_cfg["voxel_size"]
+    osf = test_cfg["out_size_factor"]
+    score_thr = test_cfg["score_threshold"]
+    class_offset = 0
+    for t, pd in enumerate(preds):
+        pd = {k: v.float() for k, v in pd.items()}
+        hm = torch.sigmoid(pd["hm"])
+        b, h, w, c = hm.shape
+        dev = hm.device
+        post = torch.tensor(test_cfg["post_center_limit_range"],
+                            dtype=torch.float32, device=dev)
+        dim = torch.exp(pd["dim"]).reshape(b, h * w, 3)
+        rot = torch.atan2(pd["rot"][..., 0:1], pd["rot"][..., 1:2]).reshape(
+            b, h * w, 1)
+        reg = pd["reg"].reshape(b, h * w, 2)
+        hei = pd["height"].reshape(b, h * w, 1)
+        vel = pd["vel"].reshape(b, h * w, 2)
+        hm_flat = hm.reshape(b, h * w, c)
+        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32,
+                                             device=dev),
+                                torch.arange(w, dtype=torch.float32,
+                                             device=dev), indexing="ij")
+        xs = xs.reshape(1, h * w, 1) + reg[:, :, 0:1]
+        ys = ys.reshape(1, h * w, 1) + reg[:, :, 1:2]
+        xs = xs * osf * voxel_size[0] + pc_range[0]
+        ys = ys * osf * voxel_size[1] + pc_range[1]
+        boxes = torch.cat([xs, ys, hei, dim, vel, rot], dim=2)
+        scores, labels = hm_flat.max(dim=-1)
+        in_range = ((boxes[..., :3] >= post[:3]).all(-1)
+                    & (boxes[..., :3] <= post[3:6]).all(-1))
+        mask = (scores > score_thr) & in_range
+        out.append((boxes, scores, (labels + class_offset).to(torch.int32),
+                    mask))
+        class_offset += num_classes[t]
+    return out

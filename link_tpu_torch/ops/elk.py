@@ -25,9 +25,14 @@ DENSE_AUX_MAX_BYTES = 256 * 1024 * 1024
 
 
 def aux_grid_shape(x: SparseTensor, s: int):
-    """RAW-extent (nx, ny, nz, nb) bound of x's coord domain, or None."""
+    """RAW-extent (nx, ny, nz, nb) bound of x's coord domain, from
+    grid_extent (seg) or the level table's lattice extent (det levels,
+    spconv_engine.ensure_level_table), or None."""
     if x.grid_extent is not None:
         return tuple(int(v) for v in x.grid_extent)
+    ltab = x.kmaps.get(("table", x.stride))
+    if ltab is not None and ltab.grid is not None:
+        return ltab.grid
     return None
 
 

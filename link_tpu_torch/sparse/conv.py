@@ -1,14 +1,17 @@
 """Sparse 3D convolution: kernel-map planning + gather-matmul.
 
-PyTorch counterpart of `link_tpu/sparse/conv.py`, in its per-tap query
-form. A plan holds a dense gather-form kernel map `in_idx[K, M_out]` over
-the fixed output capacity:
+PyTorch counterpart of `link_tpu/sparse/conv.py`. A plan holds a dense
+gather-form kernel map `in_idx[K, M_out]` over the fixed output capacity:
 
     forward:    y[j] = sum_k feats[in_idx[k, j]] @ W[k]     (miss -> 0)
     transposed: y[i] = sum_k feats[inv_idx[k, i]] @ W[k]
 
-Both run through the hand-written `gather_conv` kernel, and every plan's
-join through the `sorted_join` kernel (`link_tpu_torch/ops/kernels.py`).
+Both run through the hand-written `gather_conv` kernel. A submanifold
+conv over sorted input rows whose caller prefers the window form gives
+its plan the window arrays (base_pos, slot, groups) and runs through the
+hand-written `window_conv` kernel when a whole G-row window is narrow
+enough (`window_chunk`, as `link_tpu` decides). Every plan's join runs
+through the `sorted_join` kernel (`link_tpu_torch/ops/kernels.py`).
 """
 
 from __future__ import annotations
@@ -48,13 +51,26 @@ def build_conv_plan(in_coords: torch.Tensor, out_coords: torch.Tensor,
         table = coordlib.build_table(in_coords, assume_sorted=in_sorted)
     offs_np = np.asarray(offsets)
     mir = mirror_perm(offs_np) if out_coords is in_coords else None
-    offs = torch.tensor(offs_np, dtype=torch.int32,
-                        device=out_coords.device)             # (K, 3)
-    qxyz = out_coords[None, :, :3] + offs[:, None, :]         # (K, M, 3)
-    qb = out_coords[None, :, 3:].expand(offs.shape[0], -1, -1)
-    in_idx = table.query(torch.cat([qxyz, qb], dim=-1))       # (K, M)
+    in_idx = coordlib.join_taps(table, out_coords, offs_np)
     return ConvPlan(in_idx=in_idx, out_coords=out_coords, out_nnz=out_nnz,
                     in_capacity=in_capacity, mirror=mir)
+
+
+def add_window_form(plan: ConvPlan, table: coordlib.CoordTable, offsets,
+                    quantum: int) -> ConvPlan:
+    """The plan with its window form (base_pos, slot, groups, self_group;
+    link_tpu/sparse/conv.py:111-145). For a submanifold plan over input
+    rows in pack-key order (`table` with the identity perm) whose taps
+    form x-runs with the step `quantum` of the rows' x lattice."""
+    offs_np = np.asarray(offsets)
+    base_pos, slot = coordlib.window_rows(table, plan.out_coords, offs_np,
+                                          plan.in_idx)
+    glist = coordlib.offset_groups(offs_np)
+    groups = tuple(tuple(t for _, t in taps) for _, taps in glist)
+    self_gi = next((gi for gi, ((ox0, oy, oz), _) in enumerate(glist)
+                    if oy == 0 and oz == 0 and ox0 in (0, -quantum)), None)
+    return plan.replace(base_pos=base_pos, slot=slot, groups=groups,
+                        self_group=self_gi)
 
 
 def invert_plan(plan: ConvPlan) -> torch.Tensor:
@@ -72,15 +88,43 @@ def invert_plan(plan: ConvPlan) -> torch.Tensor:
     return inv[:, :n].contiguous()
 
 
+def window_chunk(g: int, c: int, itemsize: int) -> int:
+    """Rows of a window that `link_tpu` fetches in one <= 256 B gather
+    (link_tpu/sparse/conv.py:351-356); the window form runs when a whole
+    G-row window fits (chunk >= G), i.e. C * itemsize * G <= 256 B."""
+    return max(1, min(g, 256 // (c * itemsize)))
+
+
+def uses_window(plan: ConvPlan, feats: torch.Tensor,
+                prefer_window: bool) -> bool:
+    """Whether apply_conv_plan takes the window form for these feats: a
+    caller that prefers it (the "auto" rule of `_window_pref`,
+    link_tpu/sparse/conv.py:61-64: the det backbone opts in, seg does not),
+    a window plan with a mirror (submanifold), and a whole window that fits
+    one chunk (link_tpu/sparse/conv.py:674-687)."""
+    if (not prefer_window or plan.base_pos is None or plan.mirror is None
+            or plan.window == 0):
+        return False
+    c = feats.shape[1]
+    return window_chunk(plan.window, c, feats.element_size()) >= plan.window
+
+
 def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
-                    plan: ConvPlan, transposed: bool = False) -> torch.Tensor:
-    """Execute the plan through `gather_conv`. `weight` is (K, Ci, Co).
-    The transposed conv gathers over the plan's inverse map, so feats live
-    on the plan's output side and the result on its input side."""
-    idx = plan.inv_idx if transposed else plan.in_idx
-    if idx is None:
-        raise ValueError("transposed apply needs plan.inv_idx (invert_plan)")
-    return kernels.gather_conv(feats, idx, weight)
+                    plan: ConvPlan, transposed: bool = False,
+                    prefer_window: bool = False) -> torch.Tensor:
+    """Execute the plan through `window_conv` (window form, see
+    `uses_window`) or `gather_conv`. `weight` is (K, Ci, Co). The
+    transposed conv gathers over the plan's inverse map, so feats live on
+    the plan's output side and the result on its input side."""
+    if transposed:
+        if plan.inv_idx is None:
+            raise ValueError("transposed apply needs plan.inv_idx "
+                             "(invert_plan)")
+        return kernels.gather_conv(feats, plan.inv_idx, weight)
+    if uses_window(plan, feats, prefer_window):
+        return kernels.window_conv(feats, plan.base_pos, plan.slot,
+                                   plan.groups, weight)
+    return kernels.gather_conv(feats, plan.in_idx, weight)
 
 
 def conv3d(x: SparseTensor, weight: torch.Tensor,
@@ -88,7 +132,9 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
            stride: Union[int, Tuple[int, ...]] = 1,
            dilation: Union[int, Tuple[int, ...]] = 1,
            transposed: bool = False,
-           out_capacity: Optional[int] = None) -> SparseTensor:
+           out_capacity: Optional[int] = None,
+           bias: Optional[torch.Tensor] = None,
+           prefer_window: bool = False) -> SparseTensor:
     """Sparse conv with kernel-map caching in `x.kmaps`:
 
       * 1x1x1 stride-1: plain matmul, no coords change;
@@ -97,6 +143,11 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
         the inverse map built eagerly for the matching transposed conv;
       * transposed: reuses the plan of the matching down conv and restores
         the cached finer coord map.
+
+    An f32 `bias` is added after the conv and promotes the result, as in
+    the JAX package. `prefer_window` opts a submanifold conv over sorted
+    rows into the window form (`uses_window`); its plan then gains the
+    window arrays (`add_window_form`).
     """
     kernel_size = coordlib.make_ntuple(kernel_size)
     stride = coordlib.make_ntuple(stride)
@@ -106,16 +157,18 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
         # weight rounded to the feature dtype, products and sum in float32
         dt = x.feats.dtype
         feats = (x.feats.float() @ weight.to(dt).float()).to(dt)
+        if bias is not None:
+            feats = feats + bias
         return x.replace(feats=feats)
 
     if not transposed:
         key = ("plan", x.stride, kernel_size, stride, dilation)
         strided = any(s > 1 for s in stride)
         out_sorted = True if strided else x.coords_sorted
+        offsets = coordlib.kernel_offsets_np(kernel_size, stride=x.stride,
+                                             dilation=dilation)
         plan = x.kmaps.get(key)
         if plan is None:
-            offsets = coordlib.kernel_offsets_np(kernel_size, stride=x.stride,
-                                                 dilation=dilation)
             if strided:
                 cap = out_capacity or x.capacity
                 out_coords, out_nnz = spops.spdownsample(
@@ -127,8 +180,11 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
             tkey = ("table", x.stride)
             table = x.kmaps.get(tkey)
             if table is None:
-                table = coordlib.build_table(x.coords,
-                                             assume_sorted=x.coords_sorted)
+                iso = x.stride[0] == x.stride[1] == x.stride[2]
+                table = coordlib.build_table(
+                    x.coords, assume_sorted=x.coords_sorted,
+                    grid_shape=x.grid_extent if iso else None,
+                    grid_quantum=x.stride[0])
                 x.kmaps[tkey] = table
             plan = build_conv_plan(x.coords, out_coords, out_nnz, offsets,
                                    in_capacity=x.capacity,
@@ -137,8 +193,20 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
                 # eager inverse map for the U-Net's matching transposed conv
                 plan = plan.replace(inv_idx=invert_plan(plan))
             x.kmaps[key] = plan
+        # the window form needs occupied x cells on the taps' x step
+        # (dilation 1) and rows in table order; a plan first built for a
+        # caller that did not prefer it gains the arrays here
+        if (prefer_window and plan.groups is None and plan.mirror is not None
+                and x.coords_sorted and dilation[0] == 1
+                and coordlib.can_group_offsets(offsets, x.stride[0])):
+            plan = add_window_form(plan, x.kmaps[("table", x.stride)],
+                                   offsets, x.stride[0])
+            x.kmaps[key] = plan
 
-        feats = apply_conv_plan(x.feats, weight, plan)
+        feats = apply_conv_plan(x.feats, weight, plan,
+                                prefer_window=prefer_window)
+        if bias is not None:
+            feats = feats + bias
         new_stride = tuple(x.stride[k] * stride[k] for k in range(3))
         out = SparseTensor(feats=feats, coords=plan.out_coords,
                            nnz=plan.out_nnz, stride=new_stride,
@@ -154,6 +222,8 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
             plan = plan.replace(inv_idx=invert_plan(plan))
             x.kmaps[tkey] = plan
         feats = apply_conv_plan(x.feats, weight, plan, transposed=True)
+        if bias is not None:
+            feats = feats + bias
         fine_coords, fine_nnz = x.cmaps[tensor_stride]
         # strided-conv products are sorted (unique_coords); the creation
         # stride map carries the creation flag

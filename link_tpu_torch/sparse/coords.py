@@ -6,8 +6,10 @@ pair of int32 keys `(hi, lo)`; deduplication is a stable sort over the
 keys and a join is a lower-bound search in a sorted key table. Both are
 deterministic and collision-free.
 
-The join (`CoordTable.query`) runs through the hand-written `sorted_join`
-kernel on CUDA tensors (`link_tpu_torch/ops/kernels.py`).
+The join (`CoordTable.query`, `join_taps`) and the window form's base
+rows (`window_rows`, one lower bound per (dy, dz) tap group) run through
+the hand-written `sorted_join` kernel on CUDA tensors
+(`link_tpu_torch/ops/kernels.py`).
 
 Bit budget: x, y in [-OFFSET, 2^14 - OFFSET), z in [-OFFSET_Z,
 2^12 - OFFSET_Z), batch in [0, 2^17). Padding rows carry `INVALID_COORD`,
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,11 +85,16 @@ class CoordTable:
 
     `hi`, `lo` are the sorted keys and `perm[p]` the original row of sorted
     position p. Cached on `SparseTensor.kmaps` and shared by every plan built
-    at the same coordinate map."""
+    at the same coordinate map. `grid` is the raw (nx, ny, nz, nb) extent of
+    the level's lattice where `link_tpu` builds its dense RankGrid index
+    (`build_table(grid_shape=...)`); the port builds no such index, but the
+    ELK block reads the extent to take its dense aux path, as `link_tpu`
+    does (ops/elk.py:aux_grid_shape)."""
 
     hi: torch.Tensor      # (N,) int32
     lo: torch.Tensor      # (N,) int32
     perm: torch.Tensor    # (N,) int32
+    grid: Optional[Tuple[int, int, int, int]] = None
 
     def query(self, coords: torch.Tensor) -> torch.Tensor:
         """Index of each query coord (..., 4) in the original coordinate
@@ -98,16 +105,33 @@ class CoordTable:
                                    q_hi, q_lo).reshape(shape)
 
 
-def build_table(coords: torch.Tensor, assume_sorted: bool = False) -> CoordTable:
+# `link_tpu` builds the dense RankGrid join index for lattices up to this
+# many cells (link_tpu/sparse/coords.py:620); the port records the extent of
+# such levels on the table (CoordTable.grid) and builds no index
+RANK_GRID_MAX_CELLS = 96_000_000
+
+
+def build_table(coords: torch.Tensor, assume_sorted: bool = False,
+                grid_shape=None, grid_quantum: int = 1) -> CoordTable:
     """`assume_sorted=True` skips the sort (perm = identity) for coords
     already in pack-key order, the invariant that collate, unique_coords
-    and spdownsample maintain."""
+    and spdownsample maintain. `grid_shape=(nx, ny, nz, nb)` (raw extents)
+    marks the table with its lattice extent when the lattice at
+    `grid_quantum` fits RANK_GRID_MAX_CELLS, as `link_tpu` decides where to
+    build its RankGrid."""
     hi, lo = pack_coords(coords)
     perm = torch.arange(coords.shape[0], dtype=torch.int32,
                         device=coords.device)
     if not assume_sorted:
         hi, lo, perm = sort_by_key(hi, lo, perm)
-    return CoordTable(hi.contiguous(), lo.contiguous(), perm.contiguous())
+    grid = None
+    if grid_shape is not None:
+        q = int(grid_quantum)
+        lat = [-(-int(v) // q) for v in grid_shape[:3]]
+        if int(np.prod(lat)) * int(grid_shape[3]) <= RANK_GRID_MAX_CELLS:
+            grid = tuple(v * q for v in lat) + (int(grid_shape[3]),)
+    return CoordTable(hi.contiguous(), lo.contiguous(), perm.contiguous(),
+                      grid=grid)
 
 
 def unique_coords(coords: torch.Tensor, out_capacity: int):
@@ -171,3 +195,86 @@ def kernel_offsets_np(size: Union[int, Int3], stride: Union[int, Int3] = 1,
     even ones x-major."""
     return _kernel_offsets(make_ntuple(size), make_ntuple(stride),
                            make_ntuple(dilation))
+
+
+def offset_groups(offsets: np.ndarray):
+    """Group tap offsets by (dy, dz); members ordered by x. Returns
+    [((ox0, oy, oz), [(ox, tap_id), ...]), ...] in first-appearance order of
+    the (dy, dz) pairs (link_tpu/sparse/coords.py:931-943)."""
+    offs = np.asarray(offsets)
+    groups = {}
+    for t in range(offs.shape[0]):
+        groups.setdefault((int(offs[t, 1]), int(offs[t, 2])), []).append(
+            (int(offs[t, 0]), t))
+    glist = []
+    for (oy, oz), taps in groups.items():
+        taps = sorted(taps)
+        glist.append(((taps[0][0], oy, oz), taps))
+    return glist
+
+
+def can_group_offsets(offsets: np.ndarray, quantum: int) -> bool:
+    """True when every (dy, dz) tap group's x-offsets form an arithmetic
+    run with step == quantum (the window_rows precondition)."""
+    for _, taps in offset_groups(offsets):
+        xs = [ox for ox, _ in taps]
+        if any(b - a != quantum for a, b in zip(xs, xs[1:])):
+            return False
+    return True
+
+
+def join_taps(table: CoordTable, base_coords: torch.Tensor,
+              offsets: np.ndarray) -> torch.Tensor:
+    """Kernel map in_idx[k, j]: the original row of base_coords[j] +
+    offsets[k], or -1. One exact `sorted_join` launch over all K * M
+    queries."""
+    offs = torch.tensor(np.asarray(offsets), dtype=torch.int32,
+                        device=base_coords.device)            # (K, 3)
+    qxyz = base_coords[None, :, :3] + offs[:, None, :]        # (K, M, 3)
+    qb = base_coords[None, :, 3:].expand(offs.shape[0], -1, -1)
+    return table.query(torch.cat([qxyz, qb], dim=-1))         # (K, M)
+
+
+def window_rows(table: CoordTable, base_coords: torch.Tensor,
+                offsets: np.ndarray, in_idx: torch.Tensor):
+    """Window form of the kernel map `in_idx` over a table whose perm is
+    the identity (rows in pack-key order): the (base_pos, slot) of
+    `link_tpu/sparse/coords.py:grouped_window_query`.
+
+    Taps sharing (dy, dz) form x-runs with the step of the table's x
+    lattice (`can_group_offsets`). Keys sort with x fastest, so a group's
+    hits occupy the G table rows from the lower bound of its run's
+    smallest x: base_pos is that lower bound (one `sorted_join` launch in
+    mode "lower_bound" for all groups) and a hit's slot is its row minus
+    its group's base.
+
+    Returns base_pos (Gg, M) int32, clamped to N - 1, with padding queries
+    pinned to the group's last valid base (link_tpu/sparse/coords.py:
+    1089-1096), and slot (K, M) int8, -1 on a miss."""
+    offs = np.asarray(offsets)
+    m = base_coords.shape[0]
+    dev = base_coords.device
+    glist = offset_groups(offs)
+    g = len(glist)
+
+    anchor = torch.tensor([a for a, _ in glist], dtype=torch.int32,
+                          device=dev)                         # (G, 3)
+    q = torch.cat([base_coords[None, :, :3] + anchor[:, None, :],
+                   base_coords[None, :, 3:].expand(g, -1, -1)], dim=-1)
+    q_hi, q_lo = pack_coords(q.reshape(-1, 4))
+    pos = kernels.sorted_join(table.hi, table.lo, table.perm, q_hi, q_lo,
+                              mode="lower_bound").reshape(g, m)
+    # padding queries sort last and would clamp to n - 1; their slots are
+    # -1, so pin them to the group's last valid base instead
+    valid = q_hi.reshape(g, m) != INT32_MAX
+    last_valid = torch.where(valid, pos, torch.zeros_like(pos)).amax(
+        dim=1, keepdim=True)
+    pos = torch.where(valid, pos, last_valid)
+
+    tap_g = np.zeros(offs.shape[0], np.int64)
+    for gi, (_, taps) in enumerate(glist):
+        for _, t in taps:
+            tap_g[t] = gi
+    base = pos.long()[torch.from_numpy(tap_g).to(dev)]        # (K, M)
+    slot = torch.where(in_idx >= 0, in_idx.long() - base, -1)
+    return pos.contiguous(), slot.to(torch.int8)

@@ -29,7 +29,14 @@ class ConvPlan:
     or -1 on a miss. `inv_idx[k, i]` (built by `conv.invert_plan`) is the
     output row j with in_idx[k, j] == i, or -1: the transposed conv runs as a
     gather over it. `mirror` is the tap permutation with offsets[mirror[k]]
-    == -offsets[k], set for submanifold plans."""
+    == -offsets[k], set for submanifold plans.
+
+    When the input rows are in pack-key order the plan also carries the
+    window form (link_tpu/sparse/tensor.py:29-88): taps grouped by (dy, dz)
+    hit consecutive table rows from `base_pos[g, j]`, and `slot[k, j]` is
+    tap k's row relative to its group's base (-1 on a miss). `groups` is
+    the static tuple of tap ids per group and `self_group` the index of the
+    (dy, dz) == (0, 0) group of a submanifold plan."""
 
     in_idx: torch.Tensor          # (K, M_out) int32
     out_coords: torch.Tensor      # (M_out, 4) int32
@@ -37,6 +44,15 @@ class ConvPlan:
     in_capacity: int
     inv_idx: Optional[torch.Tensor] = None   # (K, N_in) int32
     mirror: Optional[Tuple[int, ...]] = None
+    base_pos: Optional[torch.Tensor] = None  # (Gg, M_out) int32
+    slot: Optional[torch.Tensor] = None      # (K, M_out) int8
+    groups: Optional[Tuple[Tuple[int, ...], ...]] = None
+    self_group: Optional[int] = None
+
+    @property
+    def window(self) -> int:
+        """Window width G (the longest group), 0 without groups."""
+        return max(len(t) for t in self.groups) if self.groups else 0
 
     def replace(self, **kw) -> "ConvPlan":
         return dataclasses.replace(self, **kw)

@@ -105,7 +105,7 @@ def _plan_case(kind, extent):
 @pytest.mark.parametrize("extent", [False, True])
 @pytest.mark.parametrize("kind", ["submanifold", "strided", "coarse_subm"])
 def test_plan_in_idx_matches_jax(kind, extent):
-    """in_idx of the port's per-tap join equals the JAX plan, which takes
+    """in_idx of the port's grouped join equals the JAX plan, which takes
     its grouped DirectIndex path without grid_extent and its RankGrid path
     with it; strided plans also carry an eager inverse map."""
     js, ts, _ = _plan_case(kind, extent)
