@@ -33,7 +33,34 @@ Phases, in order (any failure raises and the script exits non-zero):
                  kernels around one pass, frames/s of forward + decode, ms per
                  end-to-end `predict` (host voxelize and NMS included), boxes;
   9. det_profile one det forward + decode per frame under torch.profiler:
-                 device time by kernel and the device's idle share.
+                 device time by kernel and the device's idle share;
+ 10. train_kernels `gather_wgrad` against its twin, and the conv's whole
+                 backward (`GatherConv`: feature gradient through
+                 `gather_conv` over the inverse map, weight gradient through
+                 `gather_wgrad`) against PyTorch autograd through the plain
+                 conv, at the training path's shapes (level 0 of one
+                 synthetic batch of two scans: 169,984 rows, K=27 and the
+                 K=8 down conv with its inverse), float32 and bfloat16;
+ 11. train_grad  one train step of the tiny ELKUNet of
+                 tests/goldens/train_ab.npz on its scan 0, once on the CPU
+                 (plain twins) and once on the card (kernels): loss and
+                 every parameter's gradient;
+ 12. train_golden the 40 SGD steps of train_ab.npz replayed on the card
+                 (PyTorch's deterministic algorithms on, so that every run
+                 gives the same curve) against the reference's loss curve;
+ 13. train_main  the seg training path: ELKUNet cr1.0 float32, batch 2 at
+                 2 x DEFAULT_CAPACITIES, the recipe of
+                 configs/semantic_kitti/linkunet/default.yaml (SGD nesterov,
+                 lr 0.24 under cosine_warmup), 1 warm and 6 timed steps on
+                 synthetic scans: loss per step, ms per step, training
+                 scans/s, launches of each kernel around one step, peak
+                 memory;
+ 14. train_profile one more step under torch.profiler: device time by kernel,
+                 idle share, and the forward / backward / optimizer split;
+ 15. probes      every case of `link_tpu_torch.tools.probe_gather` (the
+                 Mosaic probes' shapes and the port's own), each exact
+                 against its twin, timed beside its bound and the library
+                 gather.
 
 Output: `#`-prefixed progress lines, then a line with the card's name and
 power limit (nvidia-smi), then one JSON line {"kernels": [...]} with each
@@ -57,6 +84,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "goldens", "elkunet_cr1.0_fullscale.npz")
 DET_GOLDEN = os.path.join(HERE, "tests", "goldens", "det_dense.npz")
+TRAIN_GOLDEN = os.path.join(HERE, "tests", "goldens", "train_ab.npz")
+TRAIN_GOLDEN_CAPS = (1024, 640, 256, 128, 64)
+SEG_CONFIG = os.path.join(HERE, "configs", "semantic_kitti", "linkunet",
+                          "default.yaml")
 OUT_JSON = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and per-type rates.
@@ -71,6 +102,11 @@ BF16_REL_TOL = 8e-3   # kernel vs twin, bf16: both round the f32 sum once to
 #                       move a value across a rounding boundary: one ulp 2^-8
 GOLDEN_REL_TOL = 2e-4  # as the JAX package's golden parity tests
 DET_GOLDEN_REL_TOL = 1e-5  # as tests/test_golden_det_dense.py
+TRAIN_GRAD_REL_TOL = 1e-4  # card vs CPU, each gradient against its largest
+#                            magnitude: float32 on both, ~60 layers of sums in
+#                            another order; `gather_wgrad` sums its partials
+#                            in a fixed order (no atomics), so nothing varies
+#                            from run to run
 
 
 def log(msg: str) -> None:
@@ -371,9 +407,11 @@ def phase_main(res, ctx, n_scans=4, rounds=3):
     ctx.update(model=model, scans=scans, fresh=fresh)
 
 
-def _profile(run, n_items: int, wall_ms: float, unit: str):
+def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
     """Device time by kernel over `run()` under torch.profiler, per item,
-    and the idle share against the unprofiled wall time per item."""
+    and the idle share against the unprofiled wall time per item. `ranges`
+    names `record_function` ranges inside `run`; each is reported with its
+    host time and the device time of the kernels launched inside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -383,8 +421,10 @@ def _profile(run, n_items: int, wall_ms: float, unit: str):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events = prof.key_averages()
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_items
     by_name = sorted(((e.self_device_time_total / 1e3 / n_items, e.count
                        // n_items, e.key) for e in kern), reverse=True)
@@ -400,12 +440,23 @@ def _profile(run, n_items: int, wall_ms: float, unit: str):
     if not busy_ms:
         log("profile: no device time in the trace (not measured)")
         return out
+    for name in ranges:
+        host = [e for e in events if e.key == name
+                and e.device_type == DeviceType.CPU]
+        out.setdefault("ranges", {})[name] = {
+            "host_ms": sum(e.cpu_time_total for e in host) / 1e3 / n_items,
+            "device_ms": sum(e.device_time_total for e in host) / 1e3
+            / n_items or None}
     log(f"profile: device busy {busy_ms:.2f} ms per {unit} of {wall_ms:.2f} "
         f"ms wall (idle share {1 - busy_ms / wall_ms:.3f}); "
         f"{out[f'launches_per_{unit}']:.0f} kernel launches per {unit} "
         f"of {len(kern)} kinds")
     for t, c, k in by_name[:12]:
         log(f"  {t:8.3f} ms {t / busy_ms:6.1%} x{c:<5d} {k[:90]}")
+    for name, r in out.get("ranges", {}).items():
+        dev = (f"{r['device_ms']:.2f} ms" if r["device_ms"]
+               else "not measured")
+        log(f"  range {name}: host {r['host_ms']:.2f} ms, device {dev}")
     return out
 
 
@@ -628,7 +679,8 @@ def phase_det_main(res, ctx, n_frames=2, rounds=3):
     if (launches["sorted_join"] != n_frames * plans
             or launches["window_conv"] + launches["gather_conv"]
             != n_frames * convs
-            or min(launches.values()) == 0):
+            or min(launches[k] for k in ("sorted_join", "window_conv",
+                                         "gather_conv")) == 0):
         raise AssertionError(f"det launch counts {launches} differ from the "
                              f"expected {plans} joins and {convs} convs per "
                              "frame, or a kernel was not launched")
@@ -643,29 +695,441 @@ def phase_det_profile(res, ctx):
         1e3 / max(res["det_frames_per_s"]), "frame")
 
 
+# --------------------------------------------------------------------------
+# seg training path
+
+
+def _train_batches(n_batches: int, caps0: int, ext):
+    """`n_batches` collated batches of two synthetic 80k-voxel scans each,
+    augmented from per-step generators as the training loop seeds them."""
+    from link_tpu_torch.data.collate import collate_scans
+    from link_tpu_torch.data.semantic_kitti import SyntheticSemanticKITTI
+    ds = SyntheticSemanticKITTI(length=2 * n_batches, num_points=80000,
+                                n_raw_points=120000, split="train")
+    out = []
+    for step in range(n_batches):
+        rng = np.random.default_rng(100 + step)
+        out.append(collate_scans(
+            [ds.__getitem__(2 * step + k, rng) for k in range(2)], caps0,
+            grid_extent=ext))
+    return out
+
+
+def _wgrad_case(kernels, feats, g, bwd_idx, iters):
+    """gather_wgrad vs its twin on one shape: error, times, bound."""
+    import torch
+    got = kernels.gather_wgrad(feats, g, bwd_idx)
+    want = kernels.gather_wgrad_plain(feats, g, bwd_idx)
+    again = kernels.gather_wgrad(feats, g, bwd_idx)
+    torch.cuda.synchronize()
+    dt = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
+    err = rel_err(got, want)
+    n, ci = feats.shape
+    m, co = g.shape
+    k = bwd_idx.shape[0]
+    isz = feats.element_size()
+    hits = int((bwd_idx >= 0).sum())
+    # feats, g and the index read once, dW written once; the products of
+    # the hit (tap, row) slots on the float32 CUDA cores (bfloat16 inputs
+    # are widened, the kernel uses no tensor cores)
+    nbytes = n * ci * isz + m * co * isz + k * n * 4 + k * ci * co * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * hits * ci * co / PEAK_OPS["float32"] * 1e3
+    case = {
+        "shape": f"N={n} M={m} K={k} Ci={ci} Co={co} {dt}",
+        "rel_err": err, "tol": F32_REL_TOL,
+        "max_abs_err": float((got - want).abs().max()),
+        "same_twice": bool(torch.equal(got, again)),
+        "ms": cuda_ms(lambda: kernels.gather_wgrad(feats, g, bwd_idx), iters),
+        "plain_ms": cuda_ms(
+            lambda: kernels.gather_wgrad_plain(feats, g, bwd_idx), iters),
+        "bound_ms": max(t_bytes, t_ops), "bound_bytes_ms": t_bytes,
+        "bound_ops_ms": t_ops,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "hits": hits,
+    }
+    log(f"gather_wgrad {case['shape']}: rel err {err:.3g} (tol "
+        f"{F32_REL_TOL}), kernel {case['ms']:.4f} ms, twin "
+        f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}; bytes {t_bytes:.4f}, operations {t_ops:.4f}), "
+        f"hits {hits} of {k * n}")
+    # float32 result from exact products, so one bound for both dtypes
+    if not err < F32_REL_TOL:
+        raise AssertionError(f"gather_wgrad {case['shape']}: rel err {err} "
+                             f">= {F32_REL_TOL}")
+    if not case["same_twice"]:
+        raise AssertionError(f"gather_wgrad {case['shape']}: two runs differ")
+    return case
+
+
+def _function_case(kernels, GatherConv, feats, weight, idx, bwd_idx):
+    """The conv's whole backward through the kernels against PyTorch
+    autograd through the plain conv, on the card."""
+    import torch
+    gen = torch.Generator(device=feats.device).manual_seed(1)
+    cot = torch.randn((idx.shape[1], weight.shape[2]), generator=gen,
+                      device=feats.device).to(feats.dtype)
+    grads = []
+    for fn in (lambda f, w: GatherConv.apply(f, w, idx, bwd_idx),
+               lambda f, w: kernels.gather_conv_plain(f, idx, w)):
+        f = feats.clone().requires_grad_()
+        w = weight.clone().requires_grad_()
+        fn(f, w).backward(cot)
+        grads.append((f.grad, w.grad))
+    torch.cuda.synchronize()
+    bf16 = feats.dtype == torch.bfloat16
+    # bfloat16: autograd of the plain conv rounds its weight gradient to
+    # bfloat16 on the way back through the weight's cast, the Function
+    # keeps float32, so both gradients are held to one bfloat16 ulp
+    tol = BF16_REL_TOL if bf16 else F32_REL_TOL
+    errs = {"d_feats": rel_err(grads[0][0], grads[1][0]),
+            "d_weight": rel_err(grads[0][1], grads[1][1])}
+    shape = (f"N={feats.shape[0]} M={idx.shape[1]} K={idx.shape[0]} "
+             f"Ci={feats.shape[1]} Co={weight.shape[2]} "
+             f"{'bfloat16' if bf16 else 'float32'}")
+    log(f"GatherConv backward {shape}: d_feats rel err "
+        f"{errs['d_feats']:.3g}, d_weight rel err {errs['d_weight']:.3g} "
+        f"(tol {tol})")
+    if not max(errs.values()) < tol:
+        raise AssertionError(f"GatherConv backward {shape}: {errs}")
+    return {"shape": shape, "tol": tol, **errs}
+
+
+def phase_train_kernels(res, ctx, iters=10):
+    import torch
+    from link_tpu_torch.data.collate import to_sparse_tensor
+    from link_tpu_torch.data.semantic_kitti import grid_extent
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse import coords as C
+    from link_tpu_torch.sparse.conv import (GatherConv, build_conv_plan,
+                                            invert_plan, plan_bwd_idx)
+    from link_tpu_torch.sparse.ops import spdownsample
+
+    dev = torch.device("cuda")
+    ext = grid_extent(0.05, batch_size=2)
+    caps = tuple(2 * c for c in DEFAULT_CAPACITIES)
+    batches = _train_batches(4, caps[0], ext)
+    ctx.update(train_batches=batches, train_caps=caps, train_ext=ext)
+    st = to_sparse_tensor(batches[0], device=dev, grid_extent=ext)
+    n = st.capacity
+    log(f"train kernel inputs: batch 0, {int(st.nnz)} voxels in {n} rows")
+
+    table = C.build_table(st.coords, assume_sorted=True)
+    subm = build_conv_plan(st.coords, st.coords, st.nnz,
+                           C.kernel_offsets_np(3), n, in_sorted=True,
+                           table=table)
+    down_coords, down_nnz = spdownsample(st.coords, caps[1])
+    down = build_conv_plan(st.coords, down_coords, down_nnz,
+                           C.kernel_offsets_np(2), n, in_sorted=True,
+                           table=table)
+    down = down.replace(inv_idx=invert_plan(down))
+    m_down = down_coords.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    wgrad, function = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        # (feats rows, Ci, out rows, Co, forward map, inverse map):
+        # submanifold 64 -> 64, the stem 4 -> 64, the decoder's first conv
+        # after the skip concat 128 -> 64 (two Ci tiles of the weight
+        # gradient, Co = 128 in the feature gradient), the K=8 down conv
+        # and the transposed conv over its inverse
+        for rows, ci, m, co, idx, bwd in (
+                (n, 64, n, 64, subm.in_idx, plan_bwd_idx(subm)),
+                (n, 4, n, 64, subm.in_idx, plan_bwd_idx(subm)),
+                (n, 128, n, 64, subm.in_idx, plan_bwd_idx(subm)),
+                (n, 64, m_down, 64, down.in_idx, plan_bwd_idx(down)),
+                (m_down, 64, n, 64, down.inv_idx, down.in_idx)):
+            feats = rand((rows, ci), dtype)
+            wgrad.append(_wgrad_case(kernels, feats, rand((m, co), dtype),
+                                     bwd, iters))
+            function.append(_function_case(
+                kernels, GatherConv, feats,
+                rand((idx.shape[0], ci, co), torch.float32,
+                     (ci * idx.shape[0]) ** -0.5), idx, bwd))
+    res["gather_wgrad_cases"] = wgrad
+    res["gather_conv_backward_cases"] = function
+
+
+def _train_golden_model(g, device):
+    import torch
+    from link_tpu_torch.models.linkunet import ELKUNet
+    model = ELKUNet(num_classes=20, cr=float(g["cr"]),
+                    capacities=TRAIN_GOLDEN_CAPS, dtype="float32",
+                    device=device)
+    model.load_state_dict({k[3:].replace("__", "."): torch.from_numpy(
+        np.array(g[k])) for k in g.files if k.startswith("sd_")}, strict=True)
+    return model
+
+
+def _train_golden_batches(g):
+    from link_tpu_torch.sparse.coords import INVALID_COORD
+    out = []
+    for i in range(int(g["n_scans"])):
+        coords, feats, labels = (g[f"scan{i}_coords"], g[f"scan{i}_feats"],
+                                 g[f"scan{i}_labels"])
+        # rows into pack-key order (b, z, y, x), as the train step assumes
+        order = np.lexsort((coords[:, 0], coords[:, 1], coords[:, 2],
+                            coords[:, 3]))
+        coords, feats, labels = coords[order], feats[order], labels[order]
+        n, cap = len(coords), TRAIN_GOLDEN_CAPS[0]
+        cpad = np.full((cap, 4), INVALID_COORD, np.int32)
+        fpad = np.zeros((cap, feats.shape[1]), np.float32)
+        lpad = np.zeros((cap,), np.int32)
+        cpad[:n], fpad[:n], lpad[:n] = coords, feats, labels
+        out.append({"feats": fpad, "coords": cpad, "labels": lpad,
+                    "nnz": np.int32(n)})
+    return out
+
+
+def phase_train_grad(res, ctx):
+    from link_tpu_torch.train import trainer as T
+
+    g = np.load(TRAIN_GOLDEN)
+    batch = _train_golden_batches(g)[0]
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = _train_golden_model(g, device)
+        opt = T.make_sgd(model.parameters(), float(g["lr"]))
+        m = T.seg_train_step(model, opt, batch)
+        out[device] = (float(m["loss"]),
+                       {k: p.grad.detach().cpu()
+                        for k, p in model.named_parameters()})
+    (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
+    errs = {k: rel_err(grads_g[k], grads_c[k]) for k in grads_c}
+    worst = max(errs, key=errs.get)
+    res["train_grad"] = {"loss_cpu": loss_c, "loss_cuda": loss_g,
+                         "worst": worst, "worst_rel_err": errs[worst],
+                         "leaves": len(errs)}
+    log(f"train_grad: loss cpu {loss_c:.6f} card {loss_g:.6f}; {len(errs)} "
+        f"gradients, worst rel err {errs[worst]:.3g} ({worst}; tol "
+        f"{TRAIN_GRAD_REL_TOL})")
+    if abs(loss_c - loss_g) > 1e-4 or not errs[worst] < TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"train_grad: loss {loss_c} vs {loss_g}, worst "
+                             f"gradient {worst} rel err {errs[worst]}")
+
+
+def phase_train_golden(res, ctx):
+    import torch
+    from link_tpu_torch.train import trainer as T
+
+    g = np.load(TRAIN_GOLDEN)
+    model = _train_golden_model(g, "cuda")
+    batches = _train_golden_batches(g)
+    opt = T.make_sgd(model.parameters(), float(g["lr"]), momentum=0.9,
+                     weight_decay=1e-4, nesterov=True)
+    ref = np.asarray(g["losses"])
+    t0 = time.perf_counter()
+    # PyTorch's `index_add_` (the backward of the ELK window sum and of
+    # the pooling) adds with atomics in no fixed order, and 40 SGD steps
+    # amplify that: 14 replays in one process on an H100 put the curve's
+    # largest error anywhere from 0.46 to 0.80 of its bound. Deterministic
+    # algorithms make every replay the same curve (0.54 of the bound); the
+    # hand-written kernels use no atomics and run as they are.
+    torch.use_deterministic_algorithms(True)
+    try:
+        steps = [T.seg_train_step(model, opt, batches[it % len(batches)])
+                 for it in range(len(ref))]
+        losses = np.asarray([float(m["loss"]) for m in steps])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["train_golden"] = {"losses": losses.tolist(),
+                           "ref_losses": ref.tolist(),
+                           "s": time.perf_counter() - t0}
+    # the bounds of tests/test_convergence_ab.py:94-107
+    tol = 5e-3 + 0.02 * np.maximum(ref, 0.2) + 2.5e-3 * np.arange(len(ref))
+    err = np.abs(losses - ref)
+    log(f"train_golden: {len(ref)} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (reference {ref[0]:.4f} -> {ref[-1]:.4f}), max "
+        f"|err| {err.max():.4g} at step {int(err.argmax())}")
+    if (abs(losses[0] - ref[0]) >= 2e-3 or not (err <= tol).all()
+            or abs(losses[-1] - ref[-1]) >= 0.1 + 0.15 * ref[-1]):
+        raise AssertionError(f"train_golden: curve left the reference's, "
+                             f"max err {err.max()} at step {err.argmax()}")
+
+
+def phase_train_main(res, ctx, timed_steps=6):
+    import torch
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.nn.modules import SparseBatchNorm, SparseConv3d
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.train import trainer as T
+    from link_tpu_torch.utils.config import load_config
+
+    cfg = load_config(SEG_CONFIG)
+    caps, ext, batches = (ctx["train_caps"], ctx["train_ext"],
+                          ctx["train_batches"])
+    if (cfg.batch_size != 2
+            or tuple(2 * c for c in cfg.model.capacities) != caps):
+        raise AssertionError("the config's batch or capacities changed")
+    model = builder.make_model(cfg, capacities=caps, dtype="float32",
+                               device="cuda", grid_extent=ext,
+                               generator=torch.Generator().manual_seed(0))
+    lr = builder.make_lr_schedule(cfg)
+    opt = builder.make_optimizer(cfg, model.parameters(), lr(0))
+    ignore = cfg.criterion.ignore_index
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(it):
+        return T.seg_train_step(model, opt, batches[it % len(batches)],
+                                ignore_label=ignore, lr=lr(it))
+
+    losses = [float(step(0)["loss"])]                          # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for it in range(1, timed_steps + 1):
+        if it == 1:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(it)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if it == 1:
+            launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        losses.append(float(m["loss"]))
+
+    convs = sum(1 for mod in model.modules() if isinstance(mod, SparseConv3d)
+                and math.prod(mod.kernel_size) > 1)
+    # forward: one gather_conv per K>1 conv; backward: one gather_wgrad per
+    # conv and one gather_conv (feature gradient) per conv but the stem's
+    # first, whose input needs no gradient; joins: 9 plans + 4 ELK windows,
+    # as on the inference path
+    want = {"gather_conv": 2 * convs - 1, "gather_wgrad": convs,
+            "sorted_join": 9 + 4}
+    no_grad = [k for k, p in model.named_parameters()
+               if p.grad is None or not bool((p.grad != 0).any())]
+    still = [k for k, mod in model.named_modules()
+             if isinstance(mod, SparseBatchNorm)
+             and not bool((mod.running_mean != 0).any())]
+    res["train_launches"] = launches
+    res["train_losses"] = losses
+    res["train_ms_per_step"] = times
+    res["train_scans_per_s"] = 2 * len(times) / (sum(times) / 1e3)
+    res["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["train_lr"] = [lr(it) for it in range(timed_steps + 1)]
+    log(f"train path f32, batch 2, {[int(b['nnz']) for b in batches]} "
+        f"voxels: loss per step {[round(v, 4) for v in losses]}; ms per step "
+        f"{[round(v, 1) for v in times]}; {res['train_scans_per_s']:.3f} "
+        f"training scans/s; launches in one step {launches} (expected "
+        f"{want}); peak memory {res['train_peak_mem_gb']:.2f} GB")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"train launch counts {launches} differ from "
+                             f"the expected {want}")
+    if no_grad or still:
+        raise AssertionError(f"parameters without a gradient: {no_grad}; "
+                             f"BatchNorms whose running mean stayed 0: "
+                             f"{still}")
+    ctx.update(train_step=step, train_next=timed_steps + 1)
+
+
+def phase_train_profile(res, ctx):
+    from link_tpu_torch.train.trainer import RANGES
+    step, it = ctx["train_step"], ctx["train_next"]
+    prof = _profile(lambda: step(it), 1, min(res["train_ms_per_step"]),
+                    "step", ranges=RANGES)
+    res["train_profile"] = prof
+    r = prof.get("ranges")
+    if r and r[RANGES[0]]["device_ms"]:
+        # autograd issues the backward's kernels from its own thread, so
+        # the backward range on the calling thread sees none of them: the
+        # backward's device time is what the other two ranges leave
+        fwd = r[RANGES[0]]["device_ms"]
+        opt = r[RANGES[2]]["device_ms"] or 0.0
+        bwd = prof["device_busy_ms_per_step"] - fwd - opt
+        prof["device_ms_split"] = {"forward": fwd, "backward": bwd,
+                                   "optimizer": opt}
+        log(f"train step device time: forward {fwd:.2f} ms, backward "
+            f"{bwd:.2f} ms (busy minus the other two), optimizer "
+            f"{opt:.2f} ms")
+
+
+# --------------------------------------------------------------------------
+# probe tool
+
+
+def phase_probes(res, ctx):
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools.probe_gather import Probes
+
+    kernels.reset_launch_counts()
+    probes = Probes("cuda", iters=8, reps=3, log=log)
+    cases = probes.run()
+    res["probe_launches"] = {fn.__name__: fn.launches
+                             for fn in kernels.KERNELS}
+    res["probe_cases"] = cases
+    log(f"probes: {len(cases)} cases, each exact against its twin; launches "
+        f"{ {k: v for k, v in res['probe_launches'].items() if v} } (per "
+        "case: one compared with the twin, one warm, 8 x 3 timed)")
+    if min(res["probe_launches"][k] for k in
+           ("probe_row_gather", "probe_slab_copy", "probe_empty")) == 0:
+        raise AssertionError("a probe kernel was not launched")
+
+
+def _probe_case(res, kernel, **want):
+    """The probe case of `kernel` whose fields equal `want`."""
+    for case in res["probe_cases"]:
+        if case["kernel"] == kernel and all(case.get(k) == v
+                                            for k, v in want.items()):
+            return case
+    raise KeyError(f"no {kernel} probe case with {want}")
+
+
+# For each kernel, the case of this run whose error, times and bound stand
+# in the kernels line: a shape its main path runs. Other shapes and modes
+# are in the details file (OUT_JSON).
+KERNEL_CASE = {
+    # the seg stem plan's exact join
+    "sorted_join": lambda res: res["sorted_join"],
+    # seg K=27, 64 channels, float32
+    "gather_conv": lambda res: res["gather_conv_cases"][0],
+    # det level 0, 16 channels, float32
+    "window_conv": lambda res: res["window_conv_cases"][0],
+    # training level 0: N=M=169,984, K=27, 64 channels, float32
+    "gather_wgrad": lambda res: res["gather_wgrad_cases"][0],
+    # the 27 taps of a real plan over 169,984 rows of 256 B
+    "probe_row_gather": lambda res: _probe_case(
+        res, "probe_row_gather", letter="P", n=169984, row_bytes=256,
+        q=27 * 169984),
+    # 512 slabs of 512 rows of 256 B (128 KB of shared memory each)
+    "probe_slab_copy": lambda res: _probe_case(
+        res, "probe_slab_copy", letter="D", g=512),
+    "probe_empty": lambda res: _probe_case(res, "probe_empty"),
+}
+MAIN_PATHS = {"seg": "launches", "det": "det_launches",
+              "train": "train_launches", "probes": "probe_launches"}
+
+
 def kernels_line(res):
-    """One entry per kernel: launches summed over the seg and det paths'
-    counted passes; errors and times at a shape each path runs (join: the
-    seg stem plan's exact join; gather_conv: seg K=27 64-ch f32;
-    window_conv: det level-0 16-ch f32). The join's other shapes and its
-    lower-bound mode are in chiprun_out/chip_smoke.json."""
-    src = "link_tpu_torch/csrc/"
-    rep = "link_tpu/ops/pallas_kernels.py:"
+    """One entry per kernel of `kernels.KERNELS` (name, source and what it
+    replaces come from that registry): launches summed over the main paths'
+    counted runs (one seg pass of 4 scans, one det pass of 2 frames, one
+    train step, one run of the probe tool), and the error, times and bound
+    of `KERNEL_CASE`. A kernel without a case or without a launch on any
+    main path fails the script."""
+    from link_tpu_torch.ops import kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    seg, det = res["launches"], res["det_launches"]
     entries = []
-    for name, case, line in (
-            ("sorted_join", res["sorted_join"], "62"),
-            ("gather_conv", res["gather_conv_cases"][0], "111"),
-            ("window_conv", res["window_conv_cases"][0], "179")):
+    for fn in kernels.KERNELS:
+        name = fn.__name__
+        case = KERNEL_CASE[name](res)
+        by_path = {path: res[key].get(name, 0)
+                   for path, key in MAIN_PATHS.items()}
+        if sum(by_path.values()) == 0:
+            raise AssertionError(f"{name} was launched on no main path")
         entries.append({
-            "name": name, "route": "cuda", "source": src + name + ".cu",
-            "replaces": rep + line,
-            "launches": seg.get(name, 0) + det.get(name, 0),
-            **{k: case[k] for k in keys},
-            "launches_by_path": {"seg": seg.get(name, 0),
-                                 "det": det.get(name, 0)}})
+            "name": name, "route": "cuda",
+            "source": "link_tpu_torch/csrc/" + fn.source,
+            "replaces": fn.replaces, "launches": sum(by_path.values()),
+            **{k: case[k] for k in keys}, "shape": case.get("shape")
+            or case.get("name"), "launches_by_path": by_path})
     return {"kernels": entries}
 
 
@@ -692,17 +1156,20 @@ def main() -> int:
     ctx = {}
     for phase in (phase_build, phase_kernels, phase_golden, phase_main,
                   phase_profile, phase_det_kernels, phase_det_golden,
-                  phase_det_main, phase_det_profile):
+                  phase_det_main, phase_det_profile, phase_train_kernels,
+                  phase_train_grad, phase_train_golden, phase_train_main,
+                  phase_train_profile, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     res["total_s"] = time.perf_counter() - t_start
 
+    line = kernels_line(res)
     os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)
     with open(OUT_JSON, "w") as f:
-        json.dump(res, f, indent=1)
+        json.dump({**res, **line}, f, indent=1)
     print(card)
-    print(json.dumps(kernels_line(res)))
+    print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -152,10 +152,14 @@ class SyntheticSemanticKITTI:
     def __len__(self):
         return self.length
 
-    def __getitem__(self, index: int) -> Dict:
+    def __getitem__(self, index: int, rng=None) -> Dict:
+        """Scan `index`; `rng` (a numpy Generator) drives the train-split
+        augmentation and subsampling instead of the scan's own generator,
+        as the training loop's per-step seeds do."""
         gen = np.random.default_rng(self.seed + index)
         scan = synthetic_scan(gen, self.n_raw, self.voxel_size)
         out = process_scan(scan["points"], scan["labels"], self.voxel_size,
-                           self.num_points, self.split == "train", gen)
+                           self.num_points, self.split == "train",
+                           rng or gen)
         out["file_name"] = f"synthetic/{index:06d}.bin"
         return out

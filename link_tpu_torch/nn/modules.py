@@ -86,8 +86,11 @@ class SparseBatchNorm(nn.Module):
             mask = st.valid_mask().to(torch.float32)[:, None]
             n = torch.clamp(mask.sum(), min=1.0)
             mean = (f32 * mask).sum(0) / n
-            var = torch.clamp((f32.square() * mask).sum(0) / n
-                              - mean.square(), min=0.0)
+            # torch.maximum, not clamp: where the variance is exactly 0 (a
+            # level with one voxel, a dead channel) it halves the gradient
+            # as jnp.maximum does; clamp would pass it whole
+            var = (f32.square() * mask).sum(0) / n - mean.square()
+            var = torch.maximum(var, torch.zeros_like(var))
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(

@@ -17,6 +17,7 @@ import torch
 
 from ..sparse import coords as coordlib
 from ..sparse import ops as spops
+from ..sparse.conv import mirror_perm
 from ..sparse.dense_grid import box_sum
 from ..sparse.tensor import SparseTensor
 
@@ -78,7 +79,7 @@ def elk_aux_window_dense(mod: torch.Tensor, coords: torch.Tensor, s: int,
     wc = box_sum(cgrid, r)[..., 0]
     new = win / torch.where(wc == 0, torch.ones_like(wc), wc)[..., None]
     flat = torch.cat([new.reshape(cells, c), new.new_zeros((1, c))])
-    return flat[lin].to(mod.dtype)
+    return flat.index_select(0, lin).to(mod.dtype)      # see spdevoxelize
 
 
 def _div_coords(coords: torch.Tensor, s: int) -> torch.Tensor:
@@ -122,8 +123,18 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
 
     f = torch.cat([aux.feats, aux.feats.new_ones((aux.capacity, 1))], dim=1)
     f = f * counts.to(aux.feats.dtype)[:, None]
-    window = spops.spdevoxelize(f, nb_idx, torch.ones_like(nb_idx,
-                                                           dtype=f.dtype))
+    # The window sum is a self-join over the offsets; where they are
+    # symmetric (odd r) its inverse map is the same index with the taps
+    # mirrored, and the backward gathers over it. Even windows have no
+    # mirror and are differentiated by autograd.
+    inv_nb = None
+    if torch.is_grad_enabled() and f.requires_grad:
+        mir = mirror_perm(offsets)
+        if mir is not None:
+            inv_nb = nb_idx[:, torch.tensor(mir, device=nb_idx.device)]
+    window = spops.spdevoxelize(f, nb_idx,
+                                torch.ones_like(nb_idx, dtype=f.dtype),
+                                inv_idx=inv_nb)
     denom = window[:, -1:]
     new_feat = window[:, :-1] / torch.where(denom == 0,
                                             torch.ones_like(denom), denom)
@@ -131,4 +142,4 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
     safe = torch.where(idx_query >= 0, idx_query,
                        torch.full_like(idx_query, new_feat.shape[0])).long()
     ext = torch.cat([new_feat, new_feat.new_zeros((1, new_feat.shape[1]))])
-    return x.replace(feats=ext[safe])
+    return x.replace(feats=ext.index_select(0, safe))   # see spdevoxelize

@@ -6,7 +6,10 @@ gather-form kernel map `in_idx[K, M_out]` over the fixed output capacity:
     forward:    y[j] = sum_k feats[in_idx[k, j]] @ W[k]     (miss -> 0)
     transposed: y[i] = sum_k feats[inv_idx[k, i]] @ W[k]
 
-Both run through the hand-written `gather_conv` kernel. A submanifold
+Both run through the hand-written `gather_conv` kernel; when a gradient
+is needed they run through `GatherConv`, whose backward is the same kernel
+over the inverse map (feature gradient) and the `gather_wgrad` kernel
+(weight gradient), as `_gm` of the JAX package. A submanifold
 conv over sorted input rows whose caller prefers the window form gives
 its plan the window arrays (base_pos, slot, groups) and runs through the
 hand-written `window_conv` kernel when a whole G-row window is narrow
@@ -109,21 +112,81 @@ def uses_window(plan: ConvPlan, feats: torch.Tensor,
     return window_chunk(plan.window, c, feats.element_size()) >= plan.window
 
 
+def plan_bwd_idx(plan: ConvPlan) -> torch.Tensor:
+    """Inverse of the plan's forward map, (K, N_in): bwd_idx[k, i] == j iff
+    in_idx[k, j] == i. A submanifold plan's is its own map with the taps
+    mirrored; any other plan's is `inv_idx` (`invert_plan`). Computed once
+    and kept on the plan (link_tpu/sparse/conv.py:691-697 recomputes it per
+    apply, which costs nothing under jit)."""
+    if plan.bwd_idx is None:
+        if plan.mirror is not None:
+            mir = torch.tensor(plan.mirror, device=plan.in_idx.device)
+            plan.bwd_idx = plan.in_idx[mir]
+        else:
+            if plan.inv_idx is None:
+                plan.inv_idx = invert_plan(plan)
+            plan.bwd_idx = plan.inv_idx
+    return plan.bwd_idx
+
+
+class GatherConv(torch.autograd.Function):
+    """The gather-matmul conv with a gather-form backward
+    (link_tpu/sparse/conv.py:568-625, `_gm`):
+
+        out[j]     = sum_k feats[idx[k, j]] @ W[k]
+        d_feats[i] = sum_k g[bwd_idx[k, i]] @ W[k]^T     (`gather_conv`)
+        d_W[k]     = sum_i feats[i]^T (x) g[bwd_idx[k, i]] (`gather_wgrad`)
+
+    with `bwd_idx` the inverse of `idx`. d_feats comes back in the feature
+    dtype and d_W in the weight's; both sums are float32."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, idx, bwd_idx):
+        ctx.save_for_backward(feats, weight, bwd_idx)
+        return kernels.gather_conv(feats, idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight, bwd_idx = ctx.saved_tensors
+        g = g.contiguous()
+        d_feats = d_weight = None
+        if ctx.needs_input_grad[0]:
+            d_feats = kernels.gather_conv(
+                g, bwd_idx, weight.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            d_weight = kernels.gather_wgrad(feats, g, bwd_idx).to(weight.dtype)
+        return d_feats, d_weight, None, None
+
+
 def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
                     plan: ConvPlan, transposed: bool = False,
                     prefer_window: bool = False) -> torch.Tensor:
     """Execute the plan through `window_conv` (window form, see
     `uses_window`) or `gather_conv`. `weight` is (K, Ci, Co). The
     transposed conv gathers over the plan's inverse map, so feats live on
-    the plan's output side and the result on its input side."""
+    the plan's output side and the result on its input side. When autograd
+    needs a gradient of feats or weight, the gather form runs through
+    `GatherConv`; the window form has no backward yet and raises."""
+    needs_grad = torch.is_grad_enabled() and (feats.requires_grad
+                                              or weight.requires_grad)
     if transposed:
         if plan.inv_idx is None:
             raise ValueError("transposed apply needs plan.inv_idx "
                              "(invert_plan)")
+        if needs_grad:
+            return GatherConv.apply(feats, weight, plan.inv_idx, plan.in_idx)
         return kernels.gather_conv(feats, plan.inv_idx, weight)
     if uses_window(plan, feats, prefer_window):
+        if needs_grad:
+            raise NotImplementedError(
+                "the window-form conv has no backward: run it under "
+                "torch.no_grad(), or do not prefer the window form when "
+                "training")
         return kernels.window_conv(feats, plan.base_pos, plan.slot,
                                    plan.groups, weight)
+    if needs_grad:
+        return GatherConv.apply(feats, weight, plan.in_idx,
+                                plan_bwd_idx(plan))
     return kernels.gather_conv(feats, plan.in_idx, weight)
 
 

@@ -1,13 +1,14 @@
 """Functional sparse ops: count / voxelize / devoxelize / downsample.
 
-PyTorch counterpart of `link_tpu/sparse/ops.py` (forward only). Scatter
-reductions are index-adds into a table with one extra dump row, which takes
-the misses (idx == -1) and is cut off.
+PyTorch counterpart of `link_tpu/sparse/ops.py`. Scatter reductions are
+index-adds into a table with one extra dump row, which takes the misses
+(idx == -1) and is cut off. PyTorch autograd differentiates all of them;
+`spdevoxelize` with an inverse map has a gather-form backward of its own.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -39,10 +40,8 @@ def spvoxelize(feats: torch.Tensor, idx: torch.Tensor,
     return (summed[:m] / denom).to(feats.dtype)
 
 
-def spdevoxelize(feats: torch.Tensor, idx: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
-    """Weighted gather-sum: out[i] = sum_k w[i, k] * feats[idx[i, k]];
-    idx -1 contributes zero. Sums in float32."""
+def _spdevoxelize_impl(feats: torch.Tensor, idx: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
     n_in, c = feats.shape
     ext = torch.cat([feats, feats.new_zeros((1, c))])
     safe = _dump_index(idx, n_in)
@@ -51,8 +50,45 @@ def spdevoxelize(feats: torch.Tensor, idx: torch.Tensor,
     acc = torch.zeros((idx.shape[0], c), dtype=torch.float32,
                       device=feats.device)
     for k in range(idx.shape[1]):
-        acc += (ext[safe[:, k]] * w[:, k, None]).to(torch.float32)
+        # index_select, not ext[...]: its backward is an index_add_, where
+        # advanced indexing's is a sort-based index_put_ that took 90% of a
+        # training step on the H100
+        acc += (ext.index_select(0, safe[:, k])
+                * w[:, k, None]).to(torch.float32)
     return acc.to(feats.dtype)
+
+
+class _DevoxelizeInv(torch.autograd.Function):
+    """Gather-sum whose feature backward is itself a gather-sum over the
+    inverse map (link_tpu/sparse/ops.py:72-100). `weights` must be constant
+    all-ones and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, weights, inv_idx):
+        ctx.save_for_backward(inv_idx)
+        return _spdevoxelize_impl(feats, idx, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_idx, = ctx.saved_tensors
+        d_feats = _spdevoxelize_impl(g, inv_idx,
+                                     torch.ones_like(inv_idx, dtype=g.dtype))
+        return d_feats, None, None, None
+
+
+def spdevoxelize(feats: torch.Tensor, idx: torch.Tensor,
+                 weights: torch.Tensor,
+                 inv_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted gather-sum: out[i] = sum_k w[i, k] * feats[idx[i, k]];
+    idx -1 contributes zero. Sums in float32.
+
+    `inv_idx` (optional, (n_in, K)): inverse map with idx[inv_idx[j, k], k]
+    == j wherever inv_idx[j, k] >= 0, covering every valid (i, k) pair once.
+    When given, the backward runs in gather form over it instead of
+    autograd's scatter-add; `weights` must then be constant all-ones."""
+    if inv_idx is not None:
+        return _DevoxelizeInv.apply(feats, idx, weights, inv_idx)
+    return _spdevoxelize_impl(feats, idx, weights)
 
 
 def spdownsample(coords: torch.Tensor, out_capacity: int,

@@ -29,7 +29,9 @@ class ConvPlan:
     or -1 on a miss. `inv_idx[k, i]` (built by `conv.invert_plan`) is the
     output row j with in_idx[k, j] == i, or -1: the transposed conv runs as a
     gather over it. `mirror` is the tap permutation with offsets[mirror[k]]
-    == -offsets[k], set for submanifold plans.
+    == -offsets[k], set for submanifold plans. `bwd_idx` caches the inverse
+    map the conv's backward gathers over (`conv.plan_bwd_idx`: the mirrored
+    taps of a submanifold plan, else `inv_idx`), filled at first use.
 
     When the input rows are in pack-key order the plan also carries the
     window form (link_tpu/sparse/tensor.py:29-88): taps grouped by (dy, dz)
@@ -48,6 +50,7 @@ class ConvPlan:
     slot: Optional[torch.Tensor] = None      # (K, M_out) int8
     groups: Optional[Tuple[Tuple[int, ...], ...]] = None
     self_group: Optional[int] = None
+    bwd_idx: Optional[torch.Tensor] = None   # (K, N_in) int32
 
     @property
     def window(self) -> int:

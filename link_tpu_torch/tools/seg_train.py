@@ -1,0 +1,164 @@
+"""Segmentation training entry point of the PyTorch port.
+
+Counterpart of tools/seg_train.py (reference segmentation/train.py:31-184)
+on one process and one device: config cascade, per-epoch training with the
+per-iteration cosine-warmup LR, val mIoU each epoch, rotating + best
+checkpoints.
+
+Usage:
+  python3 -m link_tpu_torch.tools.seg_train \
+      configs/semantic_kitti/linkunet/default.yaml [--synthetic] \
+      [--epochs N] [--run-dir D] [--resume [auto|path]] \
+      [--stop-after-epoch N] [--device cpu] [key=value ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data.collate import collate_scans
+from ..data.loader import PrefetchLoader, epoch_indices, shard_indices
+from ..data.semantic_kitti import SyntheticSemanticKITTI
+from ..models import builder
+from ..train import trainer as T
+from ..train.checkpoint import (checkpoint_meta, find_resume, load_checkpoint,
+                                save_checkpoint)
+from ..train.metrics import MeanIoU
+from ..utils.config import load_config
+from ..utils.logging import MetricsLogger, save_runtime_code
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("config")
+    ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--synthetic", action="store_true",
+                    help="use the synthetic dataset (no real data needed)")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--resume", nargs="?", const="auto", default=None,
+                    help="checkpoint path, or bare/`auto` to continue from "
+                         "the run dir's latest.pt if one exists")
+    ap.add_argument("--stop-after-epoch", type=int, default=None,
+                    help="exit cleanly after checkpointing this epoch; the "
+                         "LR schedule still spans the full num_epochs, so a "
+                         "later --resume continues the same recipe")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    ap.add_argument("overrides", nargs="*")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    cfg = load_config(args.config, args.overrides)
+    if args.epochs:
+        cfg.num_epochs = args.epochs
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to train on "
+                           "the CPU")
+    batch = cfg.batch_size
+
+    if not args.synthetic:
+        raise NotImplementedError(
+            "the SemanticKITTI reader is not ported yet: pass --synthetic")
+    print("using synthetic dataset")
+    train_ds = SyntheticSemanticKITTI(
+        length=cfg.dataset.get("synthetic_length", 64),
+        voxel_size=cfg.dataset.voxel_size,
+        num_points=cfg.dataset.num_points, split="train")
+    val_ds = SyntheticSemanticKITTI(
+        length=8, voxel_size=cfg.dataset.voxel_size,
+        num_points=cfg.dataset.num_points, split="train")
+    cfg.data.training_size = len(train_ds)
+
+    caps = tuple(c * batch for c in cfg.model.get("capacities"))
+    seed = cfg.train.seed
+    model = builder.make_model(
+        cfg, capacities=caps, dtype=cfg.model.get("dtype", "float32"),
+        device=device, generator=torch.Generator().manual_seed(seed))
+    lr = builder.make_lr_schedule(cfg)
+    opt = builder.make_optimizer(cfg, model.parameters(), lr(0))
+    state = T.TrainState(model, opt)
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"params: {nparams / 1e6:.2f}M")
+
+    def make_batch(ds, idxs, rng=None):
+        scans = [ds[int(i)] if rng is None else ds.__getitem__(int(i), rng)
+                 for i in idxs]
+        return collate_scans(scans, caps[0],
+                             ignore_label=cfg.data.ignore_label)
+
+    run_dir = args.run_dir or os.path.join(
+        "runs", os.path.splitext(os.path.basename(args.config))[0]
+        + time.strftime("-%m%d%H%M"))
+
+    start_epoch = 1
+    if args.resume:
+        rp = find_resume(run_dir) if args.resume == "auto" else args.resume
+        if rp:
+            # model, batch statistics, optimizer state and the step count,
+            # so the LR schedule continues exactly
+            load_checkpoint(rp, state)
+            start_epoch = int(checkpoint_meta(rp).get("epoch", 0)) + 1
+            print(f"resumed {rp} -> starting at epoch {start_epoch}, step "
+                  f"{state.step}, lr {lr(state.step):.6g}")
+        elif args.resume != "auto":
+            raise FileNotFoundError(args.resume)
+
+    os.makedirs(run_dir, exist_ok=True)
+    save_runtime_code(run_dir)
+    jlog = MetricsLogger(run_dir, interval=1)
+
+    steps_per_epoch = max(1, len(train_ds) // batch)
+    for epoch in range(start_epoch, cfg.num_epochs + 1):
+        idx = epoch_indices(len(train_ds), epoch, seed)
+        shard = shard_indices(idx[:steps_per_epoch * batch], 1)[0]
+
+        def train_batch(step, shard=shard, epoch=epoch):
+            rng = np.random.default_rng(seed * 1000 + epoch * 100 + step)
+            return make_batch(train_ds, shard[step * batch:(step + 1) * batch],
+                              rng)
+
+        t_ep = time.time()
+        losses = []
+        for b in PrefetchLoader(train_batch, steps_per_epoch):
+            metrics = T.seg_train_step(
+                model, opt, b, ignore_label=cfg.criterion.ignore_index,
+                lr=lr(state.step))
+            state.step += 1
+            losses.append(metrics["loss"])
+        loss = float(torch.stack(losses).mean())    # waits for the device
+        dt = time.time() - t_ep
+        print(f"epoch {epoch}: loss={loss:.4f} "
+              f"({steps_per_epoch * batch / dt:.2f} scans/s)", flush=True)
+
+        # validation (voxel-level mIoU)
+        miou_metric = MeanIoU(cfg.data.num_classes, cfg.data.ignore_label)
+        for step in range(max(1, len(val_ds) // batch)):
+            sl = [(step * batch + k) % len(val_ds) for k in range(batch)]
+            _, counters = T.seg_eval_step(
+                model, make_batch(val_ds, sl), cfg.data.num_classes,
+                cfg.data.ignore_label)
+            miou_metric.update(counters)
+        miou = miou_metric.compute()
+        print(f"epoch {epoch}: val mIoU (voxel) = {miou * 100:.2f}",
+              flush=True)
+        jlog.log({"epoch": epoch, "loss/train": loss, "iou/val": float(miou),
+                  "scans_per_sec": steps_per_epoch * batch / dt})
+        save_checkpoint(run_dir, state, epoch, metric=miou,
+                        meta={"config": args.config})
+        if args.stop_after_epoch and epoch >= args.stop_after_epoch:
+            print(f"stopping after epoch {epoch} (--stop-after-epoch)",
+                  flush=True)
+            break
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -8,10 +8,14 @@ dict, the inverse of `link_tpu/utils/torch_import.py:translate_elkunet`;
 `from_jax_det_params` does the same for the JAX VoxelNet, the inverse of
 `link_tpu/utils/torch_import_det.py:translate_voxelnet` (spconv weight
 layouts, Linear and Conv2d transposes, the ConvTranspose spatial flip).
+`to_jax_flat` goes the other way for the ELKUNet: a port `state_dict`, or
+the gradients by parameter name, onto the flat names of the JAX trees, so
+gradients and updated parameters can be compared leaf by leaf.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -91,6 +95,81 @@ def from_jax_params(params: Dict[str, Any],
     sd["classifier.0.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
     sd["classifier.0.bias"] = _t(params["classifier"]["bias"])
     return sd
+
+
+_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"),
+            "running_var": ("batch_stats", "var")}
+_BLOCK_SLOT = {"net.0": "SparseConv3d_0", "net.1": "SparseBatchNorm_0",
+               "net.3": "SparseConv3d_1", "net.4": "SparseBatchNorm_1",
+               "downsample.0": "SparseConv3d_2",
+               "downsample.1": "SparseBatchNorm_2"}
+_ELK_SLOT = {"pre_mix.0": "pre_mix", "pre_mix.1": "pre_mix_norm",
+             "local_mix.0": "local_mix", "pos_weight.0": "pos_weight",
+             "norm": "norm", "norm_local": "norm_local"}
+
+
+def _jax_name(key: str):
+    """Port ELKUNet key -> (collection, flax path, transposed), or None for
+    a key the JAX trees do not hold (num_batches_tracked)."""
+    mod, _, leaf = key.rpartition(".")
+    if leaf == "num_batches_tracked":
+        return None
+    if mod == "classifier.0":
+        return "params", f"classifier/{'kernel' if leaf == 'weight' else leaf}", \
+            leaf == "weight"
+    m = re.fullmatch(r"(elk\d)\.(.+)", mod)
+    if m:                                           # ELK block internals
+        slot = _ELK_SLOT[m.group(2)]
+        if leaf == "kernel":
+            return "params", f"{m.group(1)}/{slot}/kernel", False
+        if slot in ("pre_mix", "pos_weight"):       # Linear: (out, in)
+            return "params", f"{m.group(1)}/{slot}/kernel", True
+        return "params", f"{m.group(1)}/{slot}/" \
+            f"{'scale' if leaf == 'weight' else leaf}", False
+    if re.fullmatch(r"elk\d", mod):
+        return "params", f"{mod}/{leaf}", False      # alpha
+    # module path of a conv or a norm -> flax scope
+    m = re.fullmatch(r"stem\.(\d)", mod)
+    if m:
+        scope = {"0": "stem0", "1": "stem0_bn", "3": "stem1",
+                 "4": "stem1_bn"}[m.group(1)]
+    elif re.fullmatch(r"(stage|elk)\d_tail\.[01]", mod):
+        base, i = mod.rsplit(".", 1)
+        scope = base if i == "0" else base + "_bn"
+    else:
+        m = (re.fullmatch(r"(down\d)\.0\.(net\.\d)", mod)
+             or re.fullmatch(r"(stage\d)\.(\d)\.((?:net|downsample)\.\d)", mod)
+             or re.fullmatch(r"(up\d)\.0\.(net\.\d)", mod)
+             or re.fullmatch(r"(up\d)\.1\.(\d)\.((?:net|downsample)\.\d)", mod))
+        if m is None:
+            raise KeyError(f"no JAX name for {key!r}")
+        g = m.groups()
+        if len(g) == 2:
+            block = g[0] + ("_deconv" if g[0].startswith("up") else "")
+        else:
+            block = (f"{g[0]}_res{g[1]}" if g[0].startswith("up")
+                     else f"{g[0]}_{g[1]}")
+        scope = f"{block}/{_BLOCK_SLOT[g[-1]]}"
+    if leaf == "kernel":
+        return "params", f"{scope}/kernel", False
+    coll, name = _BN_LEAF[leaf]
+    return coll, f"{scope}/{name}", False
+
+
+def to_jax_flat(named: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Port ELKUNet tensors by `state_dict` key (parameters, buffers or
+    gradients) -> {"params/<flax path>" or "batch_stats/<flax path>": numpy
+    array}, in the JAX layouts: the inverse of `from_jax_params`."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in named.items():
+        name = _jax_name(key)
+        if name is None:
+            continue
+        coll, path, transposed = name
+        a = value.detach().cpu().numpy()
+        out[f"{coll}/{path}"] = a.T if transposed else a
+    return out
 
 
 def _subm_weight(kernel) -> torch.Tensor:
