@@ -9,7 +9,8 @@ Phases, in order (any failure raises and the script exits non-zero):
                  name and power limit;
   2. kernels     hold each kernel against its plain PyTorch twin at the seg
                  path's shapes (84,992-row tables from a synthetic 80k-voxel
-                 scan), and time kernel, twin and the library yardstick;
+                 scan), the conv kernel also bit-equal over two runs, and
+                 time kernel, twin and the library yardstick;
   3. golden      ELKUNet cr1.0 float32 (TF32 off) at DEFAULT_CAPACITIES on
                  the real 80k-voxel scan of
                  tests/goldens/elkunet_cr1.0_fullscale.npz with the
@@ -34,7 +35,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                  end-to-end `predict` (host voxelize and NMS included), boxes;
   9. det_profile one det forward + decode per frame under torch.profiler:
                  device time by kernel and the device's idle share;
- 10. train_kernels `gather_wgrad` against its twin, and the conv's whole
+ 10. train_kernels the weight-gradient work list built on the card against
+                 its plain twin; `gather_wgrad` against its twin, and the
+                 conv's whole
                  backward (`GatherConv`: feature gradient through
                  `gather_conv` over the inverse map, weight gradient through
                  `gather_wgrad`) against PyTorch autograd through the plain
@@ -57,10 +60,20 @@ Phases, in order (any failure raises and the script exits non-zero):
                  memory;
  14. train_profile one more step under torch.profiler: device time by kernel,
                  idle share, and the forward / backward / optimizer split;
- 15. probes      every case of `link_tpu_torch.tools.probe_gather` (the
+ 15. path_shapes `gather_conv` and `gather_wgrad` against their twins,
+                 bit-equal over two runs, at every distinct shape and dtype
+                 of one more seg pass, det pass and training step (their
+                 inputs recorded as the paths make them);
+ 16. probes      every case of `link_tpu_torch.tools.probe_gather` (the
                  Mosaic probes' shapes and the port's own), each exact
                  against its twin, timed beside its bound and the library
                  gather.
+
+A kernel, twin or library call is timed as the mean over the replay of a
+CUDA graph of back-to-back calls, so that it reads the card's time and not
+the host's launch interval (a failed capture is reported and a CUDA-event
+time, paced by the host, kept). The golden forward is timed by CUDA events
+around whole calls, the rates by the host clock around synchronized work.
 
 Output: `#`-prefixed progress lines, then a line with the card's name and
 power limit (nvidia-smi), then one JSON line {"kernels": [...]} with each
@@ -95,6 +108,11 @@ OUT_JSON = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 # 128 FP32 lanes per SM).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int32": 33.5e12}
+# The conv kernels' products run on the tensor cores: bfloat16 on the bf16
+# MMA, float32 as three TF32 passes (csrc/mma_sm90.cuh), so float32-accurate
+# products at a third of the 495 TFLOP/s TF32 rate. PEAK_OPS["float32"] (the
+# CUDA cores) stays the yardstick of the PR 3 kernels' bounds, kept beside.
+TC_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 
 F32_REL_TOL = 1e-5    # kernel vs twin, f32: only the summation order differs
 BF16_REL_TOL = 8e-3   # kernel vs twin, bf16: both round the f32 sum once to
@@ -119,19 +137,21 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-12))
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn over `iters` back-to-back calls (warm)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+CAPTURE_FAILED = []    # "label: error" of each call not timed by a graph
+
+
+def cuda_ms(fn, iters: int, label: str = "") -> float:
+    """Mean device time of fn over `iters` calls (warm), from the replay of
+    a CUDA graph of those calls, so that it reads the card's time and not
+    the host's launch interval (`link_tpu_torch.utils.timing.device_ms`). A
+    capture that fails is reported, and the event time, paced by the host,
+    kept."""
+    from link_tpu_torch.utils.timing import device_ms
+    ms, mode = device_ms(fn, iters)
+    if mode != "graph":
+        CAPTURE_FAILED.append(f"{label}: {mode}")
+        log(f"{label or 'a call'}: {mode}; the event time is kept")
+    return ms
 
 
 def card_line() -> str:
@@ -165,10 +185,12 @@ def _scan_tensor(index: int, device):
     return to_sparse_tensor(batch, device=device, grid_extent=ext)
 
 
-def _conv_case(kernels, feats, idx, weight, iters):
-    """Kernel vs twin on one conv shape: error, times, bound."""
+def _conv_case(kernels, feats, idx, weight, iters, role=""):
+    """Kernel vs twin on one conv shape: error, two runs bit-equal, times,
+    bound (and PR 3's CUDA-core bound beside it)."""
     import torch
     got = kernels.gather_conv(feats, idx, weight)
+    again = kernels.gather_conv(feats, idx, weight)
     want = kernels.gather_conv_plain(feats, idx, weight)
     torch.cuda.synchronize()
     dt = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
@@ -178,29 +200,35 @@ def _conv_case(kernels, feats, idx, weight, iters):
     k, m = idx.shape
     co = weight.shape[2]
     isz = feats.element_size()
-    hits = int((idx >= 0).sum())
+    hits = int(((idx >= 0) & (idx < n)).sum())
     nbytes = n * ci * isz + k * m * 4 + k * ci * co * isz + m * co * isz
     ops = 2.0 * hits * ci * co
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dt] * 1e3
+    t_ops = ops / TC_OPS[dt] * 1e3
+    shape = f"N={n} M={m} K={k} Ci={ci} Co={co} {dt}"
     case = {
-        "shape": f"N={n} M={m} K={k} Ci={ci} Co={co} {dt}",
+        "shape": shape, "role": role,
         "rel_err": err, "tol": tol,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": cuda_ms(lambda: kernels.gather_conv(feats, idx, weight), iters),
+        "same_twice": bool(torch.equal(got, again)),
+        "ms": cuda_ms(lambda: kernels.gather_conv(feats, idx, weight), iters,
+                      f"gather_conv {shape}"),
         "plain_ms": cuda_ms(
-            lambda: kernels.gather_conv_plain(feats, idx, weight), iters),
+            lambda: kernels.gather_conv_plain(feats, idx, weight), iters,
+            f"gather_conv_plain {shape}"),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_cuda_core_ms": max(t_bytes, ops / PEAK_OPS[dt] * 1e3),
         "library_ms": None, "hits": hits,
     }
-    log(f"gather_conv {case['shape']}: rel err {err:.3g} (tol {tol}), "
-        f"kernel {case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, "
-        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
-        f"hits {hits}")
+    log(f"gather_conv {shape}{' (' + role + ')' if role else ''}: rel err "
+        f"{err:.3g} (tol {tol}), same twice {case['same_twice']}, kernel "
+        f"{case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms ({case['bound_by']}), hits {hits}")
     if not err < tol:
-        raise AssertionError(f"gather_conv {case['shape']}: rel err {err} "
-                             f">= {tol}")
+        raise AssertionError(f"gather_conv {shape}: rel err {err} >= {tol}")
+    if not case["same_twice"]:
+        raise AssertionError(f"gather_conv {shape}: two runs differ")
     return case
 
 
@@ -295,13 +323,20 @@ def phase_kernels(res, ctx, iters=20):
     for dtype in (torch.float32, torch.bfloat16):
         f64 = rand((n, 64), dtype)
         cases.append(_conv_case(kernels, f64, in_idx,
-                                rand((27, 64, 64), dtype) * 0.125, iters))
+                                rand((27, 64, 64), dtype) * 0.125, iters,
+                                "seg K=27 64->64"))
         cases.append(_conv_case(kernels, st.feats.to(dtype), in_idx,
-                                rand((27, 4, 64), dtype) * 0.1, iters))
+                                rand((27, 4, 64), dtype) * 0.1, iters,
+                                "seg stem 4->64"))
         cases.append(_conv_case(kernels, rand((n, 128), dtype), in_idx,
-                                rand((27, 128, 64), dtype) * 0.09, iters))
+                                rand((27, 128, 64), dtype) * 0.09, iters,
+                                "seg decoder 128->64"))
         cases.append(_conv_case(kernels, rand((m_coarse, 64), dtype), inv_idx,
-                                rand((8, 64, 64), dtype) * 0.125, iters))
+                                rand((8, 64, 64), dtype) * 0.125, iters,
+                                "seg K=8 transposed"))
+        cases.append(_conv_case(kernels, f64, down.in_idx,
+                                rand((8, 64, 64), dtype) * 0.125, iters,
+                                "seg K=8 down"))
     res["gather_conv_cases"] = cases
 
 
@@ -316,6 +351,7 @@ def phase_golden(res, ctx):
     from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES, ELKUNet
     from link_tpu_torch.sparse.coords import INVALID_COORD
     from link_tpu_torch.sparse.tensor import make_sparse_tensor
+    from link_tpu_torch.utils.timing import events_ms
 
     g = np.load(GOLDEN)
     model = ELKUNet(num_classes=20, cr=float(g["cr"]),
@@ -331,8 +367,10 @@ def phase_golden(res, ctx):
     st = make_sparse_tensor(fpad, cpad, nnz=n, device="cuda")
     with torch.inference_mode():
         got = model(st)
-        res["golden_ms"] = cuda_ms(lambda: model(st.replace(
-            cmaps={st.stride: (st.coords, st.nnz)}, kmaps={})), 3)
+        # the whole forward, plans included, by CUDA events (host and
+        # card): least of 3
+        res["golden_ms"] = events_ms(lambda: model(st.replace(
+            cmaps={st.stride: (st.coords, st.nnz)}, kmaps={})), reps=3)
     torch.cuda.synchronize()
     got = got[:n].float().cpu().numpy()
     err = float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
@@ -715,12 +753,16 @@ def _train_batches(n_batches: int, caps0: int, ext):
     return out
 
 
-def _wgrad_case(kernels, feats, g, bwd_idx, iters):
-    """gather_wgrad vs its twin on one shape: error, times, bound."""
+def _wgrad_case(kernels, feats, g, bwd_idx, iters, work=None, role=""):
+    """gather_wgrad vs its twin on one shape: error, two runs bit-equal,
+    times, bound (and PR 3's CUDA-core bound beside it). `work` is the work
+    list the main path hands the kernel (built here when None)."""
     import torch
-    got = kernels.gather_wgrad(feats, g, bwd_idx)
+    if work is None:
+        work = kernels.wgrad_work_list(bwd_idx)
+    got = kernels.gather_wgrad(feats, g, bwd_idx, work)
     want = kernels.gather_wgrad_plain(feats, g, bwd_idx)
-    again = kernels.gather_wgrad(feats, g, bwd_idx)
+    again = kernels.gather_wgrad(feats, g, bwd_idx, work)
     torch.cuda.synchronize()
     dt = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
     err = rel_err(got, want)
@@ -729,30 +771,36 @@ def _wgrad_case(kernels, feats, g, bwd_idx, iters):
     k = bwd_idx.shape[0]
     isz = feats.element_size()
     hits = int((bwd_idx >= 0).sum())
-    # feats, g and the index read once, dW written once; the products of
-    # the hit (tap, row) slots on the float32 CUDA cores (bfloat16 inputs
-    # are widened, the kernel uses no tensor cores)
-    nbytes = n * ci * isz + m * co * isz + k * n * 4 + k * ci * co * 4
+    # the timed call reads feats, g and the work list (an (i, j) pair of
+    # int32 per hit and the K + 1 tap offsets; not bwd_idx) once and
+    # writes dW once; the products of the hits on the tensor cores (TC_OPS)
+    nbytes = (n * ci * isz + m * co * isz + 8 * hits + 4 * (k + 1)
+              + k * ci * co * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * hits * ci * co / PEAK_OPS["float32"] * 1e3
+    ops = 2.0 * hits * ci * co
+    t_ops = ops / TC_OPS[dt] * 1e3
+    shape = f"N={n} M={m} K={k} Ci={ci} Co={co} {dt}"
     case = {
-        "shape": f"N={n} M={m} K={k} Ci={ci} Co={co} {dt}",
+        "shape": shape, "role": role,
         "rel_err": err, "tol": F32_REL_TOL,
         "max_abs_err": float((got - want).abs().max()),
         "same_twice": bool(torch.equal(got, again)),
-        "ms": cuda_ms(lambda: kernels.gather_wgrad(feats, g, bwd_idx), iters),
+        "ms": cuda_ms(lambda: kernels.gather_wgrad(feats, g, bwd_idx, work),
+                      iters, f"gather_wgrad {shape}"),
         "plain_ms": cuda_ms(
-            lambda: kernels.gather_wgrad_plain(feats, g, bwd_idx), iters),
+            lambda: kernels.gather_wgrad_plain(feats, g, bwd_idx), iters,
+            f"gather_wgrad_plain {shape}"),
         "bound_ms": max(t_bytes, t_ops), "bound_bytes_ms": t_bytes,
         "bound_ops_ms": t_ops,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_cuda_core_ms": max(t_bytes, ops / PEAK_OPS["float32"] * 1e3),
         "library_ms": None, "hits": hits,
     }
-    log(f"gather_wgrad {case['shape']}: rel err {err:.3g} (tol "
-        f"{F32_REL_TOL}), kernel {case['ms']:.4f} ms, twin "
-        f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
-        f"({case['bound_by']}; bytes {t_bytes:.4f}, operations {t_ops:.4f}), "
-        f"hits {hits} of {k * n}")
+    log(f"gather_wgrad {shape}{' (' + role + ')' if role else ''}: rel err "
+        f"{err:.3g} (tol {F32_REL_TOL}), same twice {case['same_twice']}, "
+        f"kernel {case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms ({case['bound_by']}; bytes "
+        f"{t_bytes:.4f}, operations {t_ops:.4f}), hits {hits} of {k * n}")
     # float32 result from exact products, so one bound for both dtypes
     if not err < F32_REL_TOL:
         raise AssertionError(f"gather_wgrad {case['shape']}: rel err {err} "
@@ -831,22 +879,58 @@ def phase_train_kernels(res, ctx, iters=10):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             dtype)
 
+    # the work list of the level-0 plan's inverse map: built on the card by
+    # three small kernels, equal to its plain twin, timed beside it
+    bwd0 = plan_bwd_idx(subm)
+    work = kernels.wgrad_work_list(bwd0)
+    twin = kernels.wgrad_work_list_plain(bwd0)
+    torch.cuda.synchronize()
+    total = int(twin.tap_off[-1])
+    if not (torch.equal(work.tap_off, twin.tap_off)
+            and torch.equal(work.hit_i[:total], twin.hit_i[:total])
+            and torch.equal(work.hit_j[:total], twin.hit_j[:total])):
+        raise AssertionError("wgrad_work_list: differs from its plain twin")
+    # bwd_idx read once, the (i, j) pair of each hit and the K + 1 tap
+    # offsets written once; a compare and a prefix sum per slot is
+    # negligible beside that at the int32 rate
+    k0 = bwd0.shape[0]
+    t_bytes = (k0 * n * 4 + 8 * total + 4 * (k0 + 1)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * k0 * n / PEAK_OPS["int32"] * 1e3
+    res["wgrad_work_list"] = {
+        "shape": f"K={k0} N={n} hits={total}",
+        "launches_per_build": kernels.WORK_LIST_LAUNCHES,
+        "ms": cuda_ms(lambda: kernels.wgrad_work_list(bwd0), iters,
+                      "wgrad_work_list"),
+        "plain_ms": cuda_ms(lambda: kernels.wgrad_work_list_plain(bwd0),
+                            iters, "wgrad_work_list_plain"),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"wgrad_work_list K={k0} N={n}: equal to its twin ({total} hits), "
+        f"{res['wgrad_work_list']['ms']:.4f} ms on the card in "
+        f"{kernels.WORK_LIST_LAUNCHES} launches, twin "
+        f"{res['wgrad_work_list']['plain_ms']:.4f} ms, bound "
+        f"{res['wgrad_work_list']['bound_ms']:.4f} ms "
+        f"({res['wgrad_work_list']['bound_by']})")
+
     wgrad, function = [], []
     for dtype in (torch.float32, torch.bfloat16):
-        # (feats rows, Ci, out rows, Co, forward map, inverse map):
+        # (feats rows, Ci, out rows, Co, forward map, inverse map, role):
         # submanifold 64 -> 64, the stem 4 -> 64, the decoder's first conv
         # after the skip concat 128 -> 64 (two Ci tiles of the weight
         # gradient, Co = 128 in the feature gradient), the K=8 down conv
         # and the transposed conv over its inverse
-        for rows, ci, m, co, idx, bwd in (
-                (n, 64, n, 64, subm.in_idx, plan_bwd_idx(subm)),
-                (n, 4, n, 64, subm.in_idx, plan_bwd_idx(subm)),
-                (n, 128, n, 64, subm.in_idx, plan_bwd_idx(subm)),
-                (n, 64, m_down, 64, down.in_idx, plan_bwd_idx(down)),
-                (m_down, 64, n, 64, down.inv_idx, down.in_idx)):
+        for rows, ci, m, co, idx, bwd, role in (
+                (n, 64, n, 64, subm.in_idx, bwd0, "train level 0 64->64"),
+                (n, 4, n, 64, subm.in_idx, bwd0, "train stem 4->64"),
+                (n, 128, n, 64, subm.in_idx, bwd0,
+                 "train decoder 128->64"),
+                (n, 64, m_down, 64, down.in_idx, plan_bwd_idx(down),
+                 "train K=8 down"),
+                (m_down, 64, n, 64, down.inv_idx, down.in_idx,
+                 "train K=8 transposed")):
             feats = rand((rows, ci), dtype)
             wgrad.append(_wgrad_case(kernels, feats, rand((m, co), dtype),
-                                     bwd, iters))
+                                     bwd, iters, role=role))
             function.append(_function_case(
                 kernels, GatherConv, feats,
                 rand((idx.shape[0], ci, co), torch.float32,
@@ -991,6 +1075,7 @@ def phase_train_main(res, ctx, timed_steps=6):
         times.append((time.perf_counter() - t0) * 1e3)
         if it == 1:
             launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+            builds = kernels.wgrad_work_list.builds
         losses.append(float(m["loss"]))
 
     convs = sum(1 for mod in model.modules() if isinstance(mod, SparseConv3d)
@@ -1007,6 +1092,7 @@ def phase_train_main(res, ctx, timed_steps=6):
              if isinstance(mod, SparseBatchNorm)
              and not bool((mod.running_mean != 0).any())]
     res["train_launches"] = launches
+    res["train_work_list_builds"] = builds
     res["train_losses"] = losses
     res["train_ms_per_step"] = times
     res["train_scans_per_s"] = 2 * len(times) / (sum(times) / 1e3)
@@ -1016,12 +1102,19 @@ def phase_train_main(res, ctx, timed_steps=6):
         f"voxels: loss per step {[round(v, 4) for v in losses]}; ms per step "
         f"{[round(v, 1) for v in times]}; {res['train_scans_per_s']:.3f} "
         f"training scans/s; launches in one step {launches} (expected "
-        f"{want}); peak memory {res['train_peak_mem_gb']:.2f} GB")
+        f"{want}), and {builds} weight-gradient work lists built "
+        f"({builds * kernels.WORK_LIST_LAUNCHES} launches); peak memory "
+        f"{res['train_peak_mem_gb']:.2f} GB")
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses}")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"train launch counts {launches} differ from "
                              f"the expected {want}")
+    # one list per inverse map a weight gradient reads: at most two for
+    # each of the 9 plans (its own map and, for a down conv, the transposed
+    # conv's)
+    if not 0 < builds <= 2 * 9:
+        raise AssertionError(f"{builds} work lists built in one step")
     if no_grad or still:
         raise AssertionError(f"parameters without a gradient: {no_grad}; "
                              f"BatchNorms whose running mean stayed 0: "
@@ -1048,6 +1141,92 @@ def phase_train_profile(res, ctx):
         log(f"train step device time: forward {fwd:.2f} ms, backward "
             f"{bwd:.2f} ms (busy minus the other two), optimizer "
             f"{opt:.2f} ms")
+
+
+# --------------------------------------------------------------------------
+# the conv kernels at every shape of the main paths
+
+
+class ShapeRecorder:
+    """Stands in for the kernels module as `link_tpu_torch.sparse.conv`
+    sees it, during one run of a main path: every call reaches the kernel
+    as before, and the arguments of the first `gather_conv` and
+    `gather_wgrad` call of each distinct shape and dtype are kept."""
+
+    def __init__(self):
+        self.conv, self.wgrad = {}, {}
+
+    def __enter__(self):
+        from link_tpu_torch.sparse import conv as sconv
+        self._module, self._real = sconv, sconv.kernels
+        real, rec = self._real, self
+
+        class View:
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+            @staticmethod
+            def gather_conv(feats, idx, weight):
+                key = (tuple(feats.shape), tuple(idx.shape),
+                       tuple(weight.shape), str(feats.dtype))
+                rec.conv.setdefault(key, (feats, idx, weight))
+                return real.gather_conv(feats, idx, weight)
+
+            @staticmethod
+            def gather_wgrad(feats, g, bwd_idx, work=None):
+                key = (tuple(feats.shape), tuple(g.shape),
+                       tuple(bwd_idx.shape), str(feats.dtype))
+                rec.wgrad.setdefault(key, (feats, g, bwd_idx, work))
+                return real.gather_wgrad(feats, g, bwd_idx, work)
+
+        sconv.kernels = View()
+        return self
+
+    def __exit__(self, *exc):
+        self._module.kernels = self._real
+        return False
+
+
+def phase_path_shapes(res, ctx, iters=10):
+    """`gather_conv` and `gather_wgrad` against their twins, bit-equal over
+    two runs and timed, at every distinct shape that one more seg pass, det
+    pass and training step give them (their inputs as the paths make them;
+    recorded here, so that the earlier phases' counts, times and peak memory
+    are the paths' own), and each work list of the step against its plain
+    twin."""
+    import torch
+    from link_tpu_torch.ops import kernels
+    model, scans, fresh = ctx["model"], ctx["scans"], ctx["fresh"]
+    recorders = {}
+    with torch.inference_mode(), ShapeRecorder() as recorders["seg"]:
+        model(fresh(scans[0]))
+    with ShapeRecorder() as recorders["det"]:
+        ctx["pred"].forward(ctx["det_batches"][0])
+    with ShapeRecorder() as recorders["train"]:
+        ctx["train_step"](ctx["train_next"] + 1)
+    torch.cuda.synchronize()
+    conv_cases, wgrad_cases = [], []
+    for path, rec in recorders.items():
+        for feats, idx, weight in rec.conv.values():
+            conv_cases.append(_conv_case(kernels, feats, idx, weight, iters,
+                                         role=path))
+        for feats, g, bwd, work in rec.wgrad.values():
+            twin = kernels.wgrad_work_list_plain(bwd)
+            total = int(twin.tap_off[-1])
+            if work is not None and not (
+                    torch.equal(work.tap_off, twin.tap_off)
+                    and torch.equal(work.hit_i[:total], twin.hit_i[:total])
+                    and torch.equal(work.hit_j[:total], twin.hit_j[:total])):
+                raise AssertionError(f"{path}: a work list differs from its "
+                                     "plain twin")
+            wgrad_cases.append(_wgrad_case(kernels, feats, g, bwd, iters,
+                                           work, role=path))
+    res["path_conv_cases"] = conv_cases
+    res["path_wgrad_cases"] = wgrad_cases
+    log(f"path shapes: gather_conv at {len(conv_cases)} and gather_wgrad at "
+        f"{len(wgrad_cases)} distinct shapes of the three paths, each within "
+        "its tolerance and bit-equal over two runs; "
+        f"{len(CAPTURE_FAILED)} failed graph captures so far")
 
 
 # --------------------------------------------------------------------------
@@ -1158,11 +1337,12 @@ def main() -> int:
                   phase_profile, phase_det_kernels, phase_det_golden,
                   phase_det_main, phase_det_profile, phase_train_kernels,
                   phase_train_grad, phase_train_golden, phase_train_main,
-                  phase_train_profile, phase_probes):
+                  phase_train_profile, phase_path_shapes, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     res["total_s"] = time.perf_counter() - t_start
+    res["capture_failed"] = CAPTURE_FAILED
 
     line = kernels_line(res)
     os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)

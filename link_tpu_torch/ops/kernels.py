@@ -35,8 +35,13 @@ carries its source file and what it replaces (`.source`, `.replaces`);
 
 The kernels are compiled at first use with `nvcc` for sm_90a into
 `link_tpu_torch/_build/` (one shared library with a plain C interface per
-source, built in parallel, named by a hash of source and flags) and loaded
-with ctypes.
+source, built in parallel, named by a hash of the source, the shared headers
+of csrc/ and the flags) and loaded with ctypes.
+
+The conv kernels run their products on the tensor cores (csrc/mma_sm90.cuh):
+bfloat16 through the bf16 MMA, float32 only as three TF32 passes (hi * hi +
+hi * lo + lo * hi), never as one: a single TF32 pass misses the 1e-5 bound
+that holds every float32 kernel to its twin.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -92,10 +97,15 @@ def _nvcc() -> str:
     return path
 
 
-def _so_path(src: str) -> Path:
-    text = (CSRC / src).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    tag = hashlib.sha1(text).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(src).stem}-{tag}.so"
+def _so_path(src: str, csrc: Path = CSRC) -> Path:
+    """The library of one source, named by a hash of the source, every
+    header of `csrc` (a quoted #include finds them beside the source) and
+    the flags, so that editing any of them builds anew."""
+    h = hashlib.sha1((csrc / src).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels() -> Dict[str, str]:
@@ -254,6 +264,15 @@ _kernel(sorted_join, "sorted_join.cu",
 # gather_conv
 
 _CONV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bytes of gather_conv's fragment-ordered copy of W per (tap, 64 input
+# channels, 64 output channels): 4 warps x 8 (tf32) or 4 (bf16) k-steps x
+# 32 lanes x 16 bytes (csrc/gather_conv.cu, `w_frag_kernel`)
+_CONV_W_FRAG_BYTES = {torch.float32: 16384, torch.bfloat16: 8192}
+
+
+def conv_w_frag_bytes(k: int, ci: int, co: int, dtype: torch.dtype) -> int:
+    """Size of the W scratch one `gather_conv` launch takes."""
+    return k * -(-ci // 64) * -(-co // 64) * _CONV_W_FRAG_BYTES[dtype]
 
 
 def gather_conv_plain(feats: torch.Tensor, idx: torch.Tensor,
@@ -296,9 +315,12 @@ def gather_conv(feats: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((m, co), dtype=feats.dtype, device=feats.device)
     if m == 0 or co == 0:
         return out
+    w_frag = torch.empty(conv_w_frag_bytes(k, ci, co, feats.dtype),
+                         dtype=torch.uint8, device=feats.device)
     rc = _entry(gather_conv)(
         feats.data_ptr(), n, ci, idx.data_ptr(), k, m, weight.data_ptr(), co,
-        out.data_ptr(), _CONV_DTYPES[feats.dtype], _stream(feats))
+        w_frag.data_ptr(), out.data_ptr(), _CONV_DTYPES[feats.dtype],
+        _stream(feats))
     _raise_on("gather_conv", rc)
     gather_conv.launches += 1
     return out
@@ -306,7 +328,7 @@ def gather_conv(feats: torch.Tensor, idx: torch.Tensor,
 
 _kernel(gather_conv, "gather_conv.cu",
         "link_tpu/ops/pallas_kernels.py:111",
-        [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P])
+        [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P])
 
 
 # --------------------------------------------------------------------------
@@ -413,7 +435,75 @@ _kernel(window_conv, "window_conv.cu",
 # --------------------------------------------------------------------------
 # gather_wgrad
 
-WGRAD_CHUNK_ROWS = 2048   # input rows summed by one block of the kernel
+WGRAD_ITEM_HITS = 1024   # hits of one tap summed by one work item (<= 2048)
+
+
+class WgradWork(NamedTuple):
+    """Work list of one inverse kernel map bwd_idx (K, N): hit_i and hit_j
+    (K * N,) int32 hold the (input row i, output row bwd_idx[k, i]) pairs of
+    every hit, tap-major and in row order within a tap, and tap k's pairs
+    are [tap_off[k], tap_off[k + 1]) (tap_off (K + 1,) int32). Entries past
+    tap_off[K] are unused."""
+    hit_i: torch.Tensor
+    hit_j: torch.Tensor
+    tap_off: torch.Tensor
+
+
+def wgrad_work_list_plain(bwd_idx: torch.Tensor) -> WgradWork:
+    """Plain twin of `wgrad_work_list`: a cumsum over the hits gives each
+    its place in the list, and one scatter per array writes it there (the
+    misses to a dump slot past the end)."""
+    k, n = bwd_idx.shape
+    dev = bwd_idx.device
+    flat = bwd_idx.reshape(-1)
+    hit = flat >= 0
+    dest = torch.where(hit, torch.cumsum(hit, 0) - 1, k * n)
+    rows = torch.arange(n, dtype=torch.int32, device=dev).repeat(k)
+    hit_i = torch.zeros(k * n + 1, dtype=torch.int32, device=dev)
+    hit_j = torch.zeros(k * n + 1, dtype=torch.int32, device=dev)
+    hit_i.scatter_(0, dest, rows)
+    hit_j.scatter_(0, dest, flat)
+    tap_off = torch.zeros(k + 1, dtype=torch.int32, device=dev)
+    tap_off[1:] = torch.cumsum(hit.reshape(k, n).sum(1), 0)
+    return WgradWork(hit_i[:k * n], hit_j[:k * n], tap_off)
+
+
+WORK_LIST_LAUNCHES = 3    # kernels of one `wgrad_work_list` build on the card
+
+
+def wgrad_work_list(bwd_idx: torch.Tensor) -> WgradWork:
+    """The work list of `gather_wgrad` for bwd_idx (K, N) int32, built on
+    bwd_idx's device without a host synchronisation: on the card by three
+    small kernels of csrc/gather_wgrad.cu (hits counted per 1,024-row chunk,
+    the counts scanned, the hits written in row order), on the CPU by its
+    plain twin. `wgrad_work_list.builds` counts the builds on the card, of
+    WORK_LIST_LAUNCHES launches each."""
+    if _on_cpu(bwd_idx):
+        return wgrad_work_list_plain(bwd_idx)
+    _check_cuda("wgrad_work_list", bwd_idx)
+    if bwd_idx.dtype != torch.int32 or bwd_idx.dim() != 2:
+        raise ValueError("wgrad_work_list: bwd_idx must be (K, N) int32")
+    k, n = bwd_idx.shape
+    dev = bwd_idx.device
+    hit_i = torch.empty(k * n, dtype=torch.int32, device=dev)
+    hit_j = torch.empty(k * n, dtype=torch.int32, device=dev)
+    tap_off = torch.zeros(k + 1, dtype=torch.int32, device=dev)
+    if k == 0 or n == 0:
+        return WgradWork(hit_i, hit_j, tap_off)
+    chunks = -(-n // 1024)
+    scratch = torch.empty(2 * k * chunks, dtype=torch.int32, device=dev)
+    fn = getattr(_lib("gather_wgrad.cu"), "wgrad_work_list")
+    fn.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    rc = fn(bwd_idx.data_ptr(), n, k, hit_i.data_ptr(), hit_j.data_ptr(),
+            tap_off.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * k * chunks, _stream(bwd_idx))
+    _raise_on("wgrad_work_list", rc)
+    wgrad_work_list.builds += 1
+    return WgradWork(hit_i, hit_j, tap_off)
+
+
+wgrad_work_list.builds = 0
 
 
 def gather_wgrad_plain(feats: torch.Tensor, g: torch.Tensor,
@@ -431,11 +521,15 @@ def gather_wgrad_plain(feats: torch.Tensor, g: torch.Tensor,
 
 
 def gather_wgrad(feats: torch.Tensor, g: torch.Tensor,
-                 bwd_idx: torch.Tensor) -> torch.Tensor:
+                 bwd_idx: torch.Tensor,
+                 work: Optional[WgradWork] = None) -> torch.Tensor:
     """dW[k] = sum_i feats[i]^T (x) g[bwd_idx[k, i]] over bwd_idx[k, i] >= 0:
     the weight gradient of `gather_conv`, with `bwd_idx` the inverse of the
     forward kernel map. feats (N, Ci) and g (M, Co) float32 or bfloat16
-    (one dtype), bwd_idx (K, N) int32. Returns (K, Ci, Co) float32."""
+    (one dtype), bwd_idx (K, N) int32. `work` is bwd_idx's work list
+    (`wgrad_work_list`), built here when not given; a caller that runs
+    several weight gradients over one map passes it. Returns (K, Ci, Co)
+    float32."""
     if _on_cpu(feats, g, bwd_idx):
         return gather_wgrad_plain(feats, g, bwd_idx)
     _check_cuda("gather_wgrad", feats, g, bwd_idx)
@@ -455,12 +549,18 @@ def gather_wgrad(feats: torch.Tensor, g: torch.Tensor,
         return out
     if n == 0:
         return out.zero_()
-    chunks = -(-n // WGRAD_CHUNK_ROWS)
-    partial = torch.empty((chunks, k, ci, co), dtype=torch.float32,
+    if work is None:
+        work = wgrad_work_list(bwd_idx)
+    _check_cuda("gather_wgrad", feats, *work)
+    if work.hit_i.numel() != k * n or work.tap_off.numel() != k + 1:
+        raise ValueError("gather_wgrad: the work list is not bwd_idx's")
+    items = -(-k * n // WGRAD_ITEM_HITS) + k
+    partial = torch.empty((items, ci, co), dtype=torch.float32,
                           device=feats.device)
     rc = _entry(gather_wgrad)(
-        feats.data_ptr(), n, ci, g.data_ptr(), m, co, bwd_idx.data_ptr(), k,
-        WGRAD_CHUNK_ROWS, chunks, partial.data_ptr(), out.data_ptr(),
+        feats.data_ptr(), n, ci, g.data_ptr(), m, co, work.hit_i.data_ptr(),
+        work.hit_j.data_ptr(), work.tap_off.data_ptr(), k, WGRAD_ITEM_HITS,
+        items, partial.data_ptr(), out.data_ptr(),
         _CONV_DTYPES[feats.dtype], _stream(feats))
     _raise_on("gather_wgrad", rc)
     gather_wgrad.launches += 1
@@ -470,7 +570,7 @@ def gather_wgrad(feats: torch.Tensor, g: torch.Tensor,
 _kernel(gather_wgrad, "gather_wgrad.cu",
         "link_tpu/sparse/conv.py:620 (no Pallas counterpart: the XLA "
         "product of _gm_bwd_core)",
-        [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P])
+        [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P])
 
 
 # --------------------------------------------------------------------------
@@ -605,3 +705,4 @@ KERNELS = tuple(KERNELS)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    wgrad_work_list.builds = 0

@@ -129,6 +129,20 @@ def plan_bwd_idx(plan: ConvPlan) -> torch.Tensor:
     return plan.bwd_idx
 
 
+def plan_wgrad_work(plan: ConvPlan, transposed: bool = False):
+    """The weight-gradient work list (`kernels.wgrad_work_list`) of the
+    map the conv's backward gathers over: `plan_bwd_idx(plan)`, or for the
+    transposed conv `in_idx`. Built once and kept on the plan, so the
+    weight gradients of every conv that shares the plan reuse it."""
+    if transposed:
+        if plan.in_work is None:
+            plan.in_work = kernels.wgrad_work_list(plan.in_idx)
+        return plan.in_work
+    if plan.bwd_work is None:
+        plan.bwd_work = kernels.wgrad_work_list(plan_bwd_idx(plan))
+    return plan.bwd_work
+
+
 class GatherConv(torch.autograd.Function):
     """The gather-matmul conv with a gather-form backward
     (link_tpu/sparse/conv.py:568-625, `_gm`):
@@ -137,12 +151,15 @@ class GatherConv(torch.autograd.Function):
         d_feats[i] = sum_k g[bwd_idx[k, i]] @ W[k]^T     (`gather_conv`)
         d_W[k]     = sum_i feats[i]^T (x) g[bwd_idx[k, i]] (`gather_wgrad`)
 
-    with `bwd_idx` the inverse of `idx`. d_feats comes back in the feature
-    dtype and d_W in the weight's; both sums are float32."""
+    with `bwd_idx` the inverse of `idx` and `work` its weight-gradient work
+    list (`plan_wgrad_work`; built in the backward when None). d_feats comes
+    back in the feature dtype and d_W in the weight's; both sums are
+    float32."""
 
     @staticmethod
-    def forward(ctx, feats, weight, idx, bwd_idx):
+    def forward(ctx, feats, weight, idx, bwd_idx, work=None):
         ctx.save_for_backward(feats, weight, bwd_idx)
+        ctx.work = work
         return kernels.gather_conv(feats, idx, weight)
 
     @staticmethod
@@ -154,8 +171,9 @@ class GatherConv(torch.autograd.Function):
             d_feats = kernels.gather_conv(
                 g, bwd_idx, weight.transpose(1, 2).contiguous())
         if ctx.needs_input_grad[1]:
-            d_weight = kernels.gather_wgrad(feats, g, bwd_idx).to(weight.dtype)
-        return d_feats, d_weight, None, None
+            d_weight = kernels.gather_wgrad(feats, g, bwd_idx,
+                                            ctx.work).to(weight.dtype)
+        return d_feats, d_weight, None, None, None
 
 
 def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
@@ -174,7 +192,8 @@ def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
             raise ValueError("transposed apply needs plan.inv_idx "
                              "(invert_plan)")
         if needs_grad:
-            return GatherConv.apply(feats, weight, plan.inv_idx, plan.in_idx)
+            return GatherConv.apply(feats, weight, plan.inv_idx, plan.in_idx,
+                                    plan_wgrad_work(plan, transposed=True))
         return kernels.gather_conv(feats, plan.inv_idx, weight)
     if uses_window(plan, feats, prefer_window):
         if needs_grad:
@@ -186,7 +205,7 @@ def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
                                    plan.groups, weight)
     if needs_grad:
         return GatherConv.apply(feats, weight, plan.in_idx,
-                                plan_bwd_idx(plan))
+                                plan_bwd_idx(plan), plan_wgrad_work(plan))
     return kernels.gather_conv(feats, plan.in_idx, weight)
 
 

@@ -31,7 +31,10 @@ class ConvPlan:
     gather over it. `mirror` is the tap permutation with offsets[mirror[k]]
     == -offsets[k], set for submanifold plans. `bwd_idx` caches the inverse
     map the conv's backward gathers over (`conv.plan_bwd_idx`: the mirrored
-    taps of a submanifold plan, else `inv_idx`), filled at first use.
+    taps of a submanifold plan, else `inv_idx`), filled at first use;
+    `bwd_work` and `in_work` the weight-gradient work lists
+    (`kernels.wgrad_work_list`) of `bwd_idx` and of `in_idx` (the
+    transposed conv's inverse map), filled at first use likewise.
 
     When the input rows are in pack-key order the plan also carries the
     window form (link_tpu/sparse/tensor.py:29-88): taps grouped by (dy, dz)
@@ -51,6 +54,8 @@ class ConvPlan:
     groups: Optional[Tuple[Tuple[int, ...], ...]] = None
     self_group: Optional[int] = None
     bwd_idx: Optional[torch.Tensor] = None   # (K, N_in) int32
+    bwd_work: Optional[Any] = None           # kernels.WgradWork of bwd_idx
+    in_work: Optional[Any] = None            # kernels.WgradWork of in_idx
 
     @property
     def window(self) -> int:

@@ -24,8 +24,11 @@ probe letters at the same shapes, through the hand-written probe kernels of
     python3 -m link_tpu_torch.tools.probe_gather [--iters N] [--reps N]
         [--only A,B,...] [--device cpu]
 
-One line per case: ms per launch (the least over `reps` timings of `iters`
-back-to-back launches, CUDA events), Mrows/s, GB/s of gathered or copied
+One line per case: ms per launch (the least over `reps` replays of a CUDA
+graph of `iters` back-to-back launches, so that it reads the card's time
+and not the host's launch interval, `link_tpu_torch.utils.timing`; a failed
+capture is logged and CUDA events around the launches taken instead),
+Mrows/s, GB/s of gathered or copied
 payload (counted once, as the JAX tools count it), the bound (bytes read +
 bytes written + the index, at 3.35 TB/s) and the library call's ms. A table
 of up to 50 MB stays in the L2 cache, so a rate above the HBM rate is
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..utils.timing import device_ms
 
 HBM_BYTES_PER_S = 3.35e12
 LETTERS = ("A", "B", "C", "D", "O", "A2", "A3", "G", "E2", "P")
@@ -53,27 +57,23 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def time_ms(fn: Callable[[], object], iters: int, reps: int,
-            device: torch.device) -> float:
+            device: torch.device, modes: Optional[List[str]] = None) -> float:
     """Least time per call over `reps` timings of `iters` back-to-back
-    calls: CUDA events on the card, the host clock on the CPU."""
+    calls: on the card `device_ms` (a CUDA graph's replay, or CUDA events
+    where the capture fails), on the CPU the host clock. How the card's time was taken
+    is appended to `modes`."""
+    if device.type == "cuda":
+        ms, mode = device_ms(fn, iters, reps)
+        if modes is not None:
+            modes.append(mode)
+        return ms
     fn()
     best = float("inf")
     for _ in range(reps):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end) / iters)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            best = min(best, (time.perf_counter() - t0) * 1e3 / iters)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / iters)
     return best
 
 
@@ -96,6 +96,7 @@ class Probes:
         self.log = log
         self.rng = np.random.default_rng(seed)
         self.results: List[Dict] = []
+        self._modes: List[str] = []    # timing modes of the case at hand
 
     def _table(self, n: int, c: int, dtype: str) -> torch.Tensor:
         shape = (n, c) if c else (n,)
@@ -105,7 +106,17 @@ class Probes:
         a = self.rng.standard_normal(shape).astype(np.float32)
         return torch.from_numpy(a).to(self.device).to(_DTYPES[dtype])
 
+    def _time(self, fn, iters: Optional[int] = None) -> float:
+        return time_ms(fn, iters or self.iters, self.reps, self.device,
+                       self._modes)
+
     def _record(self, case: Dict) -> Dict:
+        if self._modes:
+            case["timing"] = self._modes
+            for mode in set(self._modes):
+                if "failed" in mode:
+                    self.log(f"{case['name']}: {mode}")
+        self._modes = []
         lib = case.get("library_ms")
         self.log(f"{case['name']:60s} {case['ms']:9.4f} ms "
                  f"{case['rows'] / case['ms'] / 1e3:10.1f} Mrows/s "
@@ -142,13 +153,10 @@ class Probes:
                     + note,
             "n": n, "row_bytes": row_bytes, "q": q, "hits": hits,
             "rows": q, "payload_bytes": q * row_bytes, "max_abs_err": err,
-            "ms": time_ms(lambda: kernels.probe_row_gather(x, idx),
-                          self.iters, self.reps, self.device),
-            "plain_ms": time_ms(
-                lambda: kernels.probe_row_gather_plain(x, idx), self.iters,
-                self.reps, self.device),
-            "library_ms": time_ms(lambda: x[long_idx], self.iters, self.reps,
-                                  self.device),
+            "ms": self._time(lambda: kernels.probe_row_gather(x, idx)),
+            "plain_ms": self._time(
+                lambda: kernels.probe_row_gather_plain(x, idx)),
+            "library_ms": self._time(lambda: x[long_idx]),
             # hit rows read, every output row written, the index read
             "bound_ms": ((hits + q) * row_bytes + 4 * q)
                         / HBM_BYTES_PER_S * 1e3,
@@ -185,12 +193,10 @@ class Probes:
             "n": n, "row_bytes": row_bytes, "g": g, "s": s,
             "out_rows": out_rows, "rows": s * g, "payload_bytes": copied,
             "max_abs_err": err,
-            "ms": time_ms(lambda: kernels.probe_slab_copy(x, offs, g,
-                                                          out_rows),
-                          self.iters, self.reps, self.device),
-            "plain_ms": time_ms(
-                lambda: kernels.probe_slab_copy_plain(x, offs, g, out_rows),
-                self.iters, self.reps, self.device),
+            "ms": self._time(lambda: kernels.probe_slab_copy(x, offs, g,
+                                                             out_rows)),
+            "plain_ms": self._time(
+                lambda: kernels.probe_slab_copy_plain(x, offs, g, out_rows)),
             "library_ms": None,      # no single PyTorch call stages slabs
             "bound_ms": (copied + written + 4 * s) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
@@ -220,12 +226,10 @@ class Probes:
             "kernel": "probe_empty", "letter": "O",
             "name": "O empty launch (8,128) float32", "rows": 8,
             "payload_bytes": 4096, "max_abs_err": max_abs_err(got, want),
-            "ms": time_ms(lambda: kernels.probe_empty(x), calls, self.reps,
-                          self.device),
-            "plain_ms": time_ms(lambda: kernels.probe_empty_plain(x), calls,
-                                self.reps, self.device),
-            "library_ms": time_ms(lambda: x.clone(), calls, self.reps,
-                                  self.device),
+            "ms": self._time(lambda: kernels.probe_empty(x), calls),
+            "plain_ms": self._time(lambda: kernels.probe_empty_plain(x),
+                                   calls),
+            "library_ms": self._time(lambda: x.clone(), calls),
             "bound_ms": 2 * 4096 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "host_us_per_call": host_us(lambda: kernels.probe_empty(x)),
             "host_us_no_kernel": host_us(lambda: torch.empty_like(x)),
