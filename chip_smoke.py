@@ -24,7 +24,10 @@ Phases, in order (any failure raises and the script exits non-zero):
   6. det_kernels `window_conv` and both modes of `sorted_join` against
                  their twins at the det path's shapes (163,840-row level 0
                  and 81,920-row level 1 of one synthetic 160k-voxel
-                 nuScenes frame), timed with twin and library yardstick;
+                 nuScenes frame, and level 0 cut to a row count that is
+                 no multiple of 16), `window_conv` also bit-equal over
+                 two runs, timed with twin and library yardstick, and
+                 `gather_conv` on the same plan's kernel map beside it;
   7. det_golden  the RPN + CenterHead in float32 (TF32 off) with the
                  reference weights of tests/goldens/det_dense.npz against its
                  RPN output and head maps;
@@ -67,7 +70,10 @@ Phases, in order (any failure raises and the script exits non-zero):
  16. probes      every case of `link_tpu_torch.tools.probe_gather` (the
                  Mosaic probes' shapes and the port's own), each exact
                  against its twin, timed beside its bound and the library
-                 gather.
+                 gather; then 6 interleaved readings (kernel, library,
+                 library, kernel, ...) of the one-hot probe's shapes (4c)
+                 against `x[idx]` and of the empty launch against `clone`,
+                 with medians and spreads.
 
 A kernel, twin or library call is timed as the mean over the replay of a
 CUDA graph of back-to-back calls, so that it reads the card's time and not
@@ -445,6 +451,12 @@ def phase_main(res, ctx, n_scans=4, rounds=3):
     ctx.update(model=model, scans=scans, fresh=fresh)
 
 
+# name stems of the kernels in link_tpu_torch/csrc (`<stem>_kernel`)
+HAND_KERNELS = ("sorted_join", "gather_conv", "w_frag", "window_conv",
+                "gather_wgrad", "wgrad_reduce", "list_count", "list_scan",
+                "list_write", "row_gather", "slab_copy", "empty")
+
+
 def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
     """Device time by kernel over `run()` under torch.profiler, per item,
     and the idle share against the unprofiled wall time per item. `ranges`
@@ -474,6 +486,10 @@ def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
         "kernel_kinds": len(kern),
         "kernels": [{f"ms_per_{unit}": t, f"launches_per_{unit}": c,
                      "name": k[:160]} for t, c, k in by_name[:25]],
+        # every kernel of link_tpu_torch/csrc, however small its share
+        "hand_kernels": [{f"ms_per_{unit}": t, f"launches_per_{unit}": c,
+                          "name": k[:160]} for t, c, k in by_name
+                         if any(f"{fn}_kernel" in k for fn in HAND_KERNELS)],
     }
     if not busy_ms:
         log("profile: no device time in the trace (not measured)")
@@ -525,10 +541,13 @@ def _det_frame(index: int):
 
 
 def _window_case(kernels, feats, plan, weight, iters):
-    """window_conv vs its twin on one plan: error, times, bound."""
+    """window_conv vs its twin on one plan: error, two runs bit-equal,
+    times, bound, and `gather_conv` on the same plan's kernel map, weights
+    and dtype as the sibling yardstick (`sibling_ms`)."""
     import torch
     args = (feats, plan.base_pos, plan.slot, plan.groups, weight)
     got = kernels.window_conv(*args)
+    again = kernels.window_conv(*args)
     want = kernels.window_conv_plain(*args)
     torch.cuda.synchronize()
     dt = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
@@ -544,23 +563,34 @@ def _window_case(kernels, feats, plan, weight, iters):
               + m * co * isz)
     ops = 2.0 * hits * ci * co
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dt] * 1e3
+    t_ops = ops / TC_OPS[dt] * 1e3
+    shape = (f"{'N=M=' + str(m) if n == m else f'N={n} M={m}'} "
+             f"G={plan.window} K={k} Ci={ci} Co={co} {dt}")
     case = {
-        "shape": f"N=M={m} G={plan.window} K={k} Ci={ci} Co={co} {dt}",
+        "shape": shape,
         "rel_err": err, "tol": tol,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": cuda_ms(lambda: kernels.window_conv(*args), iters),
-        "plain_ms": cuda_ms(lambda: kernels.window_conv_plain(*args), iters),
+        "same_twice": bool(torch.equal(got, again)),
+        "ms": cuda_ms(lambda: kernels.window_conv(*args), iters,
+                      f"window_conv {shape}"),
+        "plain_ms": cuda_ms(lambda: kernels.window_conv_plain(*args), iters,
+                            f"window_conv_plain {shape}"),
+        "sibling_ms": cuda_ms(
+            lambda: kernels.gather_conv(feats, plan.in_idx, weight), iters,
+            f"gather_conv on the window plan {shape}"),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "hits": hits,
     }
-    log(f"window_conv {case['shape']}: rel err {err:.3g} (tol {tol}), "
-        f"kernel {case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, "
-        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), hits {hits}")
+    log(f"window_conv {shape}: rel err {err:.3g} (tol {tol}), same twice "
+        f"{case['same_twice']}, kernel {case['ms']:.4f} ms, twin "
+        f"{case['plain_ms']:.4f} ms, gather_conv on the plan "
+        f"{case['sibling_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), hits {hits}")
     if not err < tol:
-        raise AssertionError(f"window_conv {case['shape']}: rel err {err} "
-                             f">= {tol}")
+        raise AssertionError(f"window_conv {shape}: rel err {err} >= {tol}")
+    if not case["same_twice"]:
+        raise AssertionError(f"window_conv {shape}: two runs differ")
     return case
 
 
@@ -618,6 +648,16 @@ def phase_det_kernels(res, ctx, iters=20):
             cases.append(_window_case(
                 kernels, rand((m, ci), dtype), plan,
                 rand((27, ci, co), dtype, (ci * 27) ** -0.5), iters))
+    # level 0 with its last 5 output rows cut: M not a multiple of 16, so
+    # the kernel reads the tile's base rows and slots by plain loads and
+    # writes a ragged last tile
+    m = plan0.slot.shape[1] - 5
+    ragged = plan0.replace(base_pos=plan0.base_pos[:, :m].contiguous(),
+                           slot=plan0.slot[:, :m].contiguous(),
+                           in_idx=plan0.in_idx[:, :m].contiguous())
+    cases.append(_window_case(kernels, rand((m + 5, 16), torch.float32),
+                              ragged, rand((27, 16, 16), torch.float32,
+                                           (16 * 27) ** -0.5), iters))
     res["window_conv_cases"] = cases
 
 
@@ -1240,10 +1280,14 @@ def phase_probes(res, ctx):
     kernels.reset_launch_counts()
     probes = Probes("cuda", iters=8, reps=3, log=log)
     cases = probes.run()
+    # row 4c and the empty launch against their library calls: 6
+    # interleaved readings each (kernel, library, library, kernel, ...)
+    res["probe_readings"] = probes.readings(6)
     res["probe_launches"] = {fn.__name__: fn.launches
                              for fn in kernels.KERNELS}
     res["probe_cases"] = cases
-    log(f"probes: {len(cases)} cases, each exact against its twin; launches "
+    log(f"probes: {len(cases)} cases, each exact against its twin, and "
+        f"{len(res['probe_readings'])} interleaved comparisons; launches "
         f"{ {k: v for k, v in res['probe_launches'].items() if v} } (per "
         "case: one compared with the twin, one warm, 8 x 3 timed)")
     if min(res["probe_launches"][k] for k in

@@ -335,6 +335,10 @@ _kernel(gather_conv, "gather_conv.cu",
 # window_conv
 
 WINDOW_MAX_TAPS = 8     # taps per group and window width the kernel takes
+WINDOW_MAX_GROUPS = 32  # tap groups the kernel takes (one lane each)
+# window rows staged per (16-row tile, group) by the kernel (csrc/
+# window_conv.cu, S); a window row past them is read from device memory
+WINDOW_SPAN_ROWS = 48
 _group_tables: Dict[tuple, tuple] = {}
 
 
@@ -405,8 +409,9 @@ def window_conv(feats: torch.Tensor, base_pos: torch.Tensor,
     if sorted(t for taps in groups for t in taps) != list(range(k)):
         raise ValueError("window_conv: groups must hold each tap once")
     gw = max(len(t) for t in groups)
-    if gw > WINDOW_MAX_TAPS:
-        raise ValueError(f"window_conv: a group of {gw} taps (at most "
+    if gw > WINDOW_MAX_TAPS or len(groups) > WINDOW_MAX_GROUPS:
+        raise ValueError(f"window_conv: {len(groups)} groups of up to {gw} "
+                         f"taps (at most {WINDOW_MAX_GROUPS} of "
                          f"{WINDOW_MAX_TAPS})")
     if weight.dim() != 3 or weight.shape[:2] != (k, ci):
         raise ValueError(f"window_conv: weight {tuple(weight.shape)} does not "
@@ -420,8 +425,9 @@ def window_conv(feats: torch.Tensor, base_pos: torch.Tensor,
     taps, goff = _group_arrays(groups, feats.device)
     rc = _entry(window_conv)(
         feats.data_ptr(), n, ci, base_pos.data_ptr(), slot.data_ptr(), m,
-        taps.data_ptr(), goff.data_ptr(), len(groups), gw, weight.data_ptr(),
-        co, out.data_ptr(), _CONV_DTYPES[feats.dtype], _stream(feats))
+        taps.data_ptr(), goff.data_ptr(), len(groups), k, gw,
+        weight.data_ptr(), co, out.data_ptr(), _CONV_DTYPES[feats.dtype],
+        _stream(feats))
     _raise_on("window_conv", rc)
     window_conv.launches += 1
     return out
@@ -429,7 +435,7 @@ def window_conv(feats: torch.Tensor, base_pos: torch.Tensor,
 
 _kernel(window_conv, "window_conv.cu",
         "link_tpu/ops/pallas_kernels.py:179",
-        [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P])
+        [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P])
 
 
 # --------------------------------------------------------------------------

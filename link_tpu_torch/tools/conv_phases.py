@@ -1,6 +1,6 @@
-"""Where the `gather_conv` kernel's time goes on the card, phase by phase.
+"""Where the conv kernels' time goes on the card, phase by phase.
 
-    python3 -m link_tpu_torch.tools.conv_phases
+    python3 -m link_tpu_torch.tools.conv_phases [--kernel gather|window]
 
 Builds csrc/gather_conv.cu once more with -DGATHER_CONV_PHASES, which makes
 warp 1 of every block count the SM clock cycles it spends in each phase
@@ -14,6 +14,15 @@ a hit and the megabytes of W they read from L2 (and, for comparison, what
 128-row tiles would read), and the mean cycles per block by phase, per
 stage, and of the slowest block. The counters cost a few percent; the
 library built with them is used by this tool alone.
+
+With --kernel window it builds csrc/window_conv.cu with
+-DWINDOW_CONV_PHASES instead (lane 0 of every warp counts its cycles in
+staging W, waiting for a tile's base rows and slots, setting up and issuing
+the group spans, waiting for a span, routing and multiplying, and writing
+its tiles) and runs it on the det window plans (level 0 16 -> 16 and 5 ->
+16, level 1 32 -> 32; float32 and bfloat16): one line per case with the
+mean cycles per warp by phase, its tiles and its (tile, group) pairs with a
+hit.
 """
 
 from __future__ import annotations
@@ -143,13 +152,130 @@ def run(iters: int = 20, log=print):
     return rows
 
 
+WINDOW_PHASES = ("stage W", "wait meta", "span setup", "wait span",
+                 "compute", "store", "total", "tiles", "groups")
+WINDOW_MAX_WARPS = 1 << 16   # PHASE_WARPS of window_conv.cu
+
+
+def build_window() -> ctypes.CDLL:
+    """The instrumented window_conv library (-DWINDOW_CONV_PHASES)."""
+    plain = kernels._so_path("window_conv.cu")
+    so = plain.with_name(plain.stem + "-phases.so")
+    if not so.exists():
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-DWINDOW_CONV_PHASES",
+               "-o", str(so), str(kernels.CSRC / "window_conv.cu")]
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + out.stdout + out.stderr)
+    lib = ctypes.CDLL(str(so))
+    lib.window_conv.argtypes = kernels.window_conv.argtypes
+    lib.window_conv.restype = ctypes.c_int
+    lib.window_conv_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.window_conv_phases.restype = ctypes.c_int
+    return lib
+
+
+def det_window_plans(device):
+    """The window-form SubM plans of det levels 0 and 1 of one synthetic
+    160k-voxel nuScenes frame (163,840 and 81,920 rows), as `chip_smoke.py`
+    builds them."""
+    from ..data import det_pipeline as dp
+    from ..data.nuscenes import SyntheticNuScenes
+    from ..models.scn import DET_CAPACITIES
+    from ..sparse import coords as C
+    from ..sparse.conv import add_window_form, build_conv_plan
+    from ..sparse.spconv_engine import spconv_downsample, spconv_out_shape
+    ds = SyntheticNuScenes(length=1, mode="val", seed=0, max_voxels=160000)
+    batch = dp.collate_det([ds[0]], DET_CAPACITIES[0])
+    coords = torch.from_numpy(batch["coords"]).to(device)
+    nnz = torch.tensor(int(batch["nnz"]), dtype=torch.int32, device=device)
+    offs = C.kernel_offsets_np(3)
+    plans = []
+    for lvl in range(2):
+        if lvl:
+            shape = spconv_out_shape((1440, 1440, 41), (3, 3, 3), (2, 2, 2),
+                                     (1, 1, 1))
+            coords, nnz = spconv_downsample(coords, (3, 3, 3), (2, 2, 2),
+                                            (1, 1, 1), shape,
+                                            DET_CAPACITIES[1])
+        table = C.build_table(coords, assume_sorted=True)
+        plans.append(add_window_form(
+            build_conv_plan(coords, coords, nnz, offs, coords.shape[0],
+                            in_sorted=True, table=table), table, offs, 1))
+    return plans
+
+
+def run_window(iters: int = 20, log=print):
+    """Phase cycles of `window_conv` on the det plans: level 0 16 -> 16 and
+    5 -> 16, level 1 32 -> 32, float32 and bfloat16."""
+    lib = build_window()
+    dev = torch.device("cuda")
+    plans = det_window_plans(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for lvl, ci, co in ((0, 16, 16), (0, 5, 16), (1, 32, 32)):
+            plan = plans[lvl]
+            k, m = plan.slot.shape
+            feats = torch.randn((m, ci), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((k, ci, co), generator=gen, device=dev)
+                 * (27 * ci) ** -0.5).to(dtype)
+            out = torch.empty((m, co), dtype=dtype, device=dev)
+            taps, goff = kernels._group_arrays(plan.groups, dev)
+            gw = max(len(t) for t in plan.groups)
+
+            def call():
+                rc = lib.window_conv(
+                    feats.data_ptr(), m, ci, plan.base_pos.data_ptr(),
+                    plan.slot.data_ptr(), m, taps.data_ptr(),
+                    goff.data_ptr(), len(plan.groups), k, gw, w.data_ptr(),
+                    co, out.data_ptr(), 0 if dtype == torch.float32 else 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"window_conv: cudaError {rc}")
+            call()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                call()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / iters
+            buf = np.zeros((WINDOW_MAX_WARPS, len(WINDOW_PHASES)), np.int64)
+            lib.window_conv_phases(buf.ctypes.data, WINDOW_MAX_WARPS)  # reset
+            call()
+            torch.cuda.synchronize()
+            rc = lib.window_conv_phases(buf.ctypes.data, WINDOW_MAX_WARPS)
+            if rc:
+                raise RuntimeError(f"window_conv_phases: cudaError {rc}")
+            live = buf[buf[:, 6] > 0]
+            mean = live.mean(0)
+            row = {"dtype": str(dtype).split(".")[1], "level": lvl,
+                   "ci": ci, "co": co, "ms": ms, "warps": len(live),
+                   "cycles_per_warp": dict(zip(WINDOW_PHASES,
+                                               mean.tolist())),
+                   "slowest_warp_cycles": int(live[:, 6].max())}
+            rows.append(row)
+            log(f"window {row['dtype']:8s} level {lvl} {ci}->{co}: {ms:.4f} "
+                f"ms (events), {len(live)} warps; mean per warp "
+                + ", ".join(f"{p} {v:.0f}"
+                            for p, v in zip(WINDOW_PHASES, mean))
+                + f"; slowest warp {row['slowest_warp_cycles']}")
+    return rows
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("gather", "window"),
+                    default="gather")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("conv_phases needs a CUDA device")
     print("device", torch.cuda.get_device_name(0))
-    run()
+    run() if args.kernel == "gather" else run_window()
     return 0
 
 

@@ -22,15 +22,21 @@ probe letters at the same shapes, through the hand-written probe kernels of
       27 N with the hit pattern of a real submanifold plan (misses are -1)
 
     python3 -m link_tpu_torch.tools.probe_gather [--iters N] [--reps N]
-        [--only A,B,...] [--device cpu]
+        [--only A,B,...] [--device cpu] [--readings N]
+
+--readings N then takes N interleaved readings (kernel, library, library,
+kernel, ...) of C's three shapes against `x[idx]` and of O against `clone`,
+and prints each side's median and spread and whether the kernel loses by
+more than the larger spread.
 
 One line per case: ms per launch (the least over `reps` replays of a CUDA
 graph of `iters` back-to-back launches, so that it reads the card's time
 and not the host's launch interval, `link_tpu_torch.utils.timing`; a failed
 capture is logged and CUDA events around the launches taken instead),
 Mrows/s, GB/s of gathered or copied
-payload (counted once, as the JAX tools count it), the bound (bytes read +
-bytes written + the index, at 3.35 TB/s) and the library call's ms. A table
+payload (counted once, as the JAX tools count it), the bound (each distinct
+table row read once + bytes written + the index, at 3.35 TB/s) and the
+library call's ms. A table
 of up to 50 MB stays in the L2 cache, so a rate above the HBM rate is
 expected there and is no error. Every result is held exact against the
 kernel's plain twin first; a wrong result or a failed launch raises and the
@@ -75,6 +81,35 @@ def time_ms(fn: Callable[[], object], iters: int, reps: int,
             fn()
         best = min(best, (time.perf_counter() - t0) * 1e3 / iters)
     return best
+
+
+def distinct_slab_rows(offs: np.ndarray, g: int, n: int) -> int:
+    """Table rows covered by the slabs [off, off + g) that lie inside the
+    table (a slab that leaves it reads nothing), each row counted once."""
+    offs = np.sort(offs[(offs >= 0) & (offs + g <= n)].astype(np.int64))
+    if offs.size == 0:
+        return 0
+    ends = offs + g
+    # a slab adds the rows past the furthest end of the slabs before it
+    reach = np.maximum.accumulate(ends)
+    prev = np.concatenate([[offs[0]], reach[:-1]])
+    return int((ends - np.maximum(offs, prev)).clip(min=0).sum())
+
+
+def interleaved(first: Callable[[], float], second: Callable[[], float],
+                n: int) -> Dict:
+    """`n` readings of each of two timings taken in the order first,
+    second, second, first, first, second, ...: the readings, their medians
+    and spreads (largest - smallest)."""
+    got = {"first": [], "second": []}
+    for i in range(2 * n):
+        who = "first" if i % 4 in (0, 3) else "second"
+        got[who].append((first if who == "first" else second)())
+    out = {}
+    for who, vals in got.items():
+        out[who] = {"readings": vals, "median": float(np.median(vals)),
+                    "spread": float(max(vals) - min(vals))}
+    return out
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -145,20 +180,24 @@ class Probes:
         err = max_abs_err(got, want)
         del got, want
         row_bytes = x.element_size() * max(c, 1)
-        hits = int((idx >= 0).sum())
+        valid = (idx >= 0) & (idx < n)
+        hits = int(valid.sum())
+        distinct = int(torch.unique(idx[valid]).numel())
         long_idx = idx.clamp(min=0).long()
         return self._record({
             "kernel": "probe_row_gather", "letter": letter,
             "name": f"{letter} row-gather(N={n},C={c or 1},Q={q},{dtype})"
                     + note,
             "n": n, "row_bytes": row_bytes, "q": q, "hits": hits,
+            "distinct_rows": distinct,
             "rows": q, "payload_bytes": q * row_bytes, "max_abs_err": err,
             "ms": self._time(lambda: kernels.probe_row_gather(x, idx)),
             "plain_ms": self._time(
                 lambda: kernels.probe_row_gather_plain(x, idx)),
             "library_ms": self._time(lambda: x[long_idx]),
-            # hit rows read, every output row written, the index read
-            "bound_ms": ((hits + q) * row_bytes + 4 * q)
+            # each distinct table row read once, every output row written,
+            # the index read
+            "bound_ms": ((distinct + q) * row_bytes + 4 * q)
                         / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
         })
@@ -184,6 +223,7 @@ class Probes:
         del got, want
         row_bytes = c * 4
         copied = s * g * row_bytes
+        distinct = distinct_slab_rows(offs.cpu().numpy(), g, n)
         written = s * (out_rows * row_bytes if out_rows else 4)
         mode = f"BQ={out_rows}" if out_rows else "slab"
         return self._record({
@@ -192,13 +232,16 @@ class Probes:
                     "float32)",
             "n": n, "row_bytes": row_bytes, "g": g, "s": s,
             "out_rows": out_rows, "rows": s * g, "payload_bytes": copied,
-            "max_abs_err": err,
+            "distinct_rows": distinct, "max_abs_err": err,
             "ms": self._time(lambda: kernels.probe_slab_copy(x, offs, g,
                                                              out_rows)),
             "plain_ms": self._time(
                 lambda: kernels.probe_slab_copy_plain(x, offs, g, out_rows)),
             "library_ms": None,      # no single PyTorch call stages slabs
-            "bound_ms": (copied + written + 4 * s) / HBM_BYTES_PER_S * 1e3,
+            # each distinct table row the slabs cover read once (overlapping
+            # slabs share rows), the output written, the offsets read
+            "bound_ms": (distinct * row_bytes + written + 4 * s)
+                        / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
         })
 
@@ -239,6 +282,55 @@ class Probes:
                  f"{case['host_us_per_call']:9.2f} us")
         self.log(f"{'O no kernel at all (loop floor: the output alloc)':60s} "
                  f"{case['host_us_no_kernel']:9.2f} us")
+        return case
+
+    def readings(self, n: int = 6) -> List[Dict]:
+        """Interleaved readings (kernel, library, library, kernel, ...; `n`
+        of each, each the mean over one replay of `iters` launches) of row
+        4c's shapes (the one-hot probe's, C, against `x[idx]`) and of the
+        empty launch (O, against `clone`): medians and spreads, and whether
+        the kernel loses by more than the larger spread."""
+        cases = [("C", 2048, 128, 2048), ("C", 8192, 128, 2048),
+                 ("C", 2048, 64, 4096)]
+        out = []
+        for letter, n_rows, c, q in cases:
+            x = self._table(n_rows, c, "bfloat16")
+            idx = torch.from_numpy(self.rng.integers(
+                0, n_rows, size=(q,)).astype(np.int32)).to(self.device)
+            if not torch.equal(kernels.probe_row_gather(x, idx),
+                               kernels.probe_row_gather_plain(x, idx)):
+                raise AssertionError(f"probe_row_gather {letter} N={n_rows} "
+                                     "differs from the twin")
+            long_idx = idx.long()
+            out.append(self._decide(
+                f"{letter} row-gather(N={n_rows},C={c},Q={q},bfloat16) vs "
+                "x[idx]", "probe_row_gather",
+                lambda: kernels.probe_row_gather(x, idx),
+                lambda: x[long_idx], n))
+        z = torch.zeros((8, 128), dtype=torch.float32, device=self.device)
+        out.append(self._decide("O empty launch vs clone", "probe_empty",
+                                lambda: kernels.probe_empty(z),
+                                lambda: z.clone(), n))
+        return out
+
+    def _decide(self, name, kernel, run_kernel, run_library, n) -> Dict:
+        r = interleaved(lambda: time_ms(run_kernel, self.iters, 1,
+                                        self.device, self._modes),
+                        lambda: time_ms(run_library, self.iters, 1,
+                                        self.device, self._modes), n)
+        k, lib = r["first"], r["second"]
+        margin = k["median"] - lib["median"]
+        case = {"kernel": kernel, "name": name, "kernel_ms": k,
+                "library_ms": lib, "margin_ms": margin,
+                "loses_beyond_spread": margin > max(k["spread"],
+                                                    lib["spread"]),
+                "timing": sorted(set(self._modes))}
+        self._modes = []
+        self.log(f"{name:60s} kernel median {k['median']:.5f} ms (spread "
+                 f"{k['spread']:.5f}), library median {lib['median']:.5f} ms "
+                 f"(spread {lib['spread']:.5f}): the kernel "
+                 + ("loses beyond the spread" if case["loses_beyond_spread"]
+                    else "does not lose beyond the spread"))
         return case
 
     def plan_index(self, n_scans: int) -> torch.Tensor:
@@ -328,6 +420,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated probe letters of " + ",".join(LETTERS))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--readings", type=int, default=0,
+                    help="then N interleaved readings of 4c and O against "
+                         "their library calls")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
     if only and not only <= set(LETTERS):
@@ -339,7 +434,10 @@ def main(argv=None) -> int:
                                "plain twins")
         print("torch", torch.__version__, "device",
               torch.cuda.get_device_name(device))
-    Probes(device, args.iters, args.reps).run(only)
+    probes = Probes(device, args.iters, args.reps)
+    probes.run(only)
+    if args.readings:
+        probes.readings(args.readings)
     return 0
 
 
