@@ -9,8 +9,10 @@ Phases, in order (any failure raises and the script exits non-zero):
                  name and power limit;
   2. kernels     hold each kernel against its plain PyTorch twin at the seg
                  path's shapes (84,992-row tables from a synthetic 80k-voxel
-                 scan), the conv kernel also bit-equal over two runs, and
-                 time kernel, twin and the library yardstick;
+                 scan: `sorted_join` at the stem, the down plan, the ELK
+                 aux window and K = 1, exactly), the conv kernel also
+                 bit-equal over two runs, and time kernel, twin and the
+                 library yardstick;
   3. golden      ELKUNet cr1.0 float32 (TF32 off) at DEFAULT_CAPACITIES on
                  the real 80k-voxel scan of
                  tests/goldens/elkunet_cr1.0_fullscale.npz with the
@@ -21,23 +23,33 @@ Phases, in order (any failure raises and the script exits non-zero):
   5. profile     one more pass of the seg path under torch.profiler: device
                  time by kernel, and the device's idle share against the
                  unprofiled wall time of phase 4;
-  6. det_kernels `window_conv` and both modes of `sorted_join` against
+  6. det_kernels `window_conv` and the three modes of `sorted_join` against
                  their twins at the det path's shapes (163,840-row level 0
                  and 81,920-row level 1 of one synthetic 160k-voxel
-                 nuScenes frame, and level 0 cut to a row count that is
-                 no multiple of 16), `window_conv` also bit-equal over
-                 two runs, timed with twin and library yardstick, and
-                 `gather_conv` on the same plan's kernel map beside it;
+                 nuScenes frame, the down plan between them, and level 0
+                 cut to a row count that is no multiple of 16), the join
+                 also on a shuffled table, unsorted base rows, padding
+                 rows in the middle and out-of-range queries (exactly
+                 equal), `window_conv` also bit-equal over two runs, timed
+                 with twin and library yardstick, and `gather_conv` on
+                 the same plan's kernel map beside it;
   7. det_golden  the RPN + CenterHead in float32 (TF32 off) with the
                  reference weights of tests/goldens/det_dense.npz against its
                  RPN output and head maps;
+  7b. det_elk_golden the reference TSELKBlock at the det capacity
+                 (tests/goldens/tselk_cos_fullscale.npz, 163,840 rows) in
+                 float32 through the sparse aux path (its joins through
+                 `sorted_join`) and the dense one;
   8. det_main    the det serving path: SingleFramePredictor, bfloat16
                  CenterPoint-ELKv3 with seeded random weights at the 160k
                  val capacity, on 2 synthetic frames: launch counts of the
                  kernels around one pass, frames/s of forward + decode, ms per
                  end-to-end `predict` (host voxelize and NMS included), boxes;
   9. det_profile one det forward + decode per frame under torch.profiler:
-                 device time by kernel and the device's idle share;
+                 device time by kernel and the device's idle share; the
+                 seg, det and train profiles also read the join sites'
+                 range (`coords.JOIN_RANGE`: host ms, device ms, launches)
+                 and fail unless it holds only `sorted_join`'s launches;
  10. train_kernels the weight-gradient work list built on the card against
                  its plain twin; `gather_wgrad` against its twin, and the
                  conv's whole
@@ -104,6 +116,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "goldens", "elkunet_cr1.0_fullscale.npz")
 DET_GOLDEN = os.path.join(HERE, "tests", "goldens", "det_dense.npz")
 TRAIN_GOLDEN = os.path.join(HERE, "tests", "goldens", "train_ab.npz")
+TSELK_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                            "tselk_cos_fullscale.npz")
 TRAIN_GOLDEN_CAPS = (1024, 640, 256, 128, 64)
 SEG_CONFIG = os.path.join(HERE, "configs", "semantic_kitti", "linkunet",
                           "default.yaml")
@@ -238,56 +252,108 @@ def _conv_case(kernels, feats, idx, weight, iters, role=""):
     return case
 
 
-def _join_case(kernels, C, table, coords, offsets, mode, iters):
-    """sorted_join vs its twin in one mode, on the queries coords + each
-    offset: exact agreement, times, bound, and the library call
-    (`torch.searchsorted`, plus the hit test in mode "exact")."""
+def _join_case(kernels, table, base, offsets, mode, iters, mult=None,
+               role=""):
+    """sorted_join vs its twin on one join site: the kernel forms the
+    queries from `base` (times `mult`) and the offsets; every output must
+    equal the twin's exactly. Times: the kernel (both launches in mode
+    "window"), the twin (the whole site as plain PyTorch ops), and the
+    library call, `torch.searchsorted` on keys packed beforehand (the
+    search alone). Bound: base rows (16 B) and outputs written once, the
+    table's keys (and perm in mode "exact") read once; against 3 int32
+    operations per probe of one search per group anchor and one compare
+    per tap. `bound_old_ms` is the bound of the kernel alone under the
+    packed-key contract (packed queries read, results written), kept
+    beside it."""
     import torch
-    offs = torch.tensor(np.asarray(offsets), dtype=torch.int32,
-                        device=coords.device)
-    q = torch.cat([coords[None, :, :3] + offs[:, None, :],
-                   coords[None, :, 3:].expand(len(offs), -1, -1)], -1)
-    q_hi, q_lo = C.pack_coords(q.reshape(-1, 4))
-    args = (table.hi, table.lo, table.perm, q_hi, q_lo)
-    got = kernels.sorted_join(*args, mode=mode)
-    want = kernels.sorted_join_plain(*args, mode=mode)
+    args = (table.hi, table.lo, table.perm, base, offsets, mult, mode)
+    got = kernels.sorted_join(*args)
+    want = kernels.sorted_join_plain(*args)
     torch.cuda.synchronize()
-    mismatches = int((got != want).sum())
-    if mismatches:
-        raise AssertionError(f"sorted_join {mode}: {mismatches} of "
-                             f"{got.numel()} results differ from the twin")
-    n, nq = table.hi.numel(), q_hi.numel()
+    if mode != "window":
+        got, want = (got,), (want,)
+    mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+    shape_ok = all(g.shape == w.shape and g.dtype == w.dtype
+                   for g, w in zip(got, want))
+    n, m = table.hi.numel(), base.shape[0]
+    k = 1 if offsets is None else len(offsets)
+    glist = kernels.offset_groups(offsets if offsets is not None
+                                  else [(0, 0, 0)])
+    g = k if mode == "lower_bound" else len(glist)
+    shape = (f"N={n} M={m} K={k} G={g} {mode}"
+             f"{' mult=' + str(tuple(mult)) if mult else ''}")
+    if mismatches or not shape_ok:
+        raise AssertionError(f"sorted_join {role} {shape}: {mismatches} "
+                             "results differ from the twin")
+    # the searchsorted yardstick on the same queries, packed beforehand
+    offs = torch.tensor(np.asarray(offsets if offsets is not None
+                                   else [(0, 0, 0)]), dtype=torch.int32,
+                        device=base.device)
+    xyz = base[:, :3] * (torch.tensor(mult, dtype=torch.int32,
+                                      device=base.device) if mult else 1)
+    q = torch.cat([xyz[None] + offs[:, None],
+                   base[None, :, 3:].expand(k, -1, -1)], -1)
+    q_hi, q_lo = kernels.pack_coords(q.reshape(-1, 4))
     tkey = kernels.key64(table.hi, table.lo)
     qkey = kernels.key64(q_hi, q_lo)
-
-    def library():
-        pos = torch.searchsorted(tkey, qkey).clamp_(max=n - 1)
-        if mode == "lower_bound":
-            return pos
-        hit = (tkey[pos] == qkey) & (q_hi != C.INT32_MAX)
-        return torch.where(hit, table.perm[pos], -1)
-
-    # table keys (and perm in mode exact) read once, queries read, results
-    # written; ~3 int32 operations per search probe
+    outs = {"exact": 4 * k * m, "lower_bound": 4 * k * m,
+            "window": 4 * k * m + 4 * g * m + k * m}[mode]
+    nbytes = 16 * m + outs + (12 if mode == "exact" else 8) * n
     probes = math.ceil(math.log2(n + 1))
-    t_bytes = ((3 if mode == "exact" else 2) * n * 4
-               + 3 * nq * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = 3.0 * nq * probes / PEAK_OPS["int32"] * 1e3
+    ops = 3.0 * (g * m * probes + k * m)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["int32"] * 1e3
+    nq_old = k * m + (g * m if mode == "window" else 0)
     case = {
-        "shape": f"N={n} Q={nq} int32 {mode}",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: kernels.sorted_join(*args, mode=mode), iters),
-        "plain_ms": cuda_ms(lambda: kernels.sorted_join_plain(
-            *args, mode=mode), iters),
-        "library_ms": cuda_ms(library, iters),
+        "shape": shape, "role": role, "max_abs_err": 0.0,
+        "hits": int((got[0] >= 0).sum()) if mode != "lower_bound" else None,
+        "ms": cuda_ms(lambda: kernels.sorted_join(*args), iters,
+                      f"sorted_join {role}"),
+        "plain_ms": cuda_ms(lambda: kernels.sorted_join_plain(*args), iters,
+                            f"sorted_join_plain {role}"),
+        "library_ms": cuda_ms(lambda: torch.searchsorted(tkey, qkey), iters,
+                              f"searchsorted {role}"),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_old_ms": ((3 if mode == "exact" else 2) * n * 4
+                         + 3 * nq_old * 4) / HBM_BYTES_PER_S * 1e3,
     }
-    log(f"sorted_join {case['shape']}: equal to the twin, kernel "
+    log(f"sorted_join {role} {shape}: equal to the twin, kernel "
         f"{case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, searchsorted "
         f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
-        f"({case['bound_by']})")
+        f"({case['bound_by']}; packed-key bound "
+        f"{case['bound_old_ms']:.4f})")
     return case
+
+
+def _join_adversarial(kernels, C, coords, iters, role):
+    """The join at full size on inputs that break the callers' order:
+    a shuffled table (non-identity perm), unsorted base rows, padding rows
+    in the middle, queries that leave the packable range; each in mode
+    exact and window."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    m = coords.shape[0]
+    offs = C.kernel_offsets_np(3)
+    table = C.build_table(coords, assume_sorted=True)
+    shuffled = coords[torch.randperm(m, generator=gen).to(coords.device)]
+    rows = torch.randint(0, m, (m // 20,), generator=gen).to(coords.device)
+    middle = coords.clone()
+    middle[rows] = C.INVALID_COORD
+    edge = coords.clone()
+    half = rows.shape[0] // 2
+    edge[rows[:half], 0] = kernels.SPAN_X - kernels.OFFSET_XY - 1
+    edge[rows[half:], 2] = -kernels.OFFSET_Z - 1
+    cases = []
+    for name, tab, base in (
+            ("non-identity perm", C.build_table(shuffled), coords),
+            ("unsorted base", table, shuffled.contiguous()),
+            ("middle sentinels", table, middle),
+            ("out of range", table, edge)):
+        for mode in ("exact", "window"):
+            cases.append(_join_case(kernels, tab, base, offs, mode, iters,
+                                    role=f"{role} {name}"))
+    return cases
 
 
 def phase_kernels(res, ctx, iters=20):
@@ -303,11 +369,25 @@ def phase_kernels(res, ctx, iters=20):
     n = st.capacity
     log(f"kernel inputs: scan 0, {int(st.nnz)} voxels in {n} rows")
 
-    # --- sorted_join, exact mode: 84,992-row table, 27 x 84,992 queries,
-    # the one join of the stem's submanifold plan
+    # --- sorted_join: the stem plan's exact join (84,992-row table, 27 x
+    # 84,992 queries; the kernels line's case), the seg down plan, the ELK
+    # aux window's self-join (r = 2, x-major even taps) and K = 1
+    from link_tpu_torch.ops.elk import voxel_to_aux
     table = C.build_table(st.coords, assume_sorted=True)
-    res["sorted_join"] = _join_case(kernels, C, table, st.coords,
-                                    C.kernel_offsets_np(3), "exact", iters)
+    res["sorted_join"] = _join_case(kernels, table, st.coords,
+                                    C.kernel_offsets_np(3), "exact", iters,
+                                    role="seg stem")
+    down_c, _ = spdownsample(st.coords, DEFAULT_CAPACITIES[1])
+    aux = voxel_to_aux(st, 3, n)[0]
+    aux_table = C.build_table(aux.coords, assume_sorted=True)
+    res["sorted_join_seg_cases"] = [
+        res["sorted_join"],
+        _join_case(kernels, table, down_c, C.kernel_offsets_np(2), "exact",
+                   iters, role="seg down K=8"),
+        _join_case(kernels, aux_table, aux.coords, C.kernel_offsets_np(2),
+                   "exact", iters, role="seg ELK aux r=2"),
+        _join_case(kernels, table, st.coords, None, "exact", iters,
+                   role="seg K=1")]
 
     # --- gather_conv at the main path's shapes
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -452,7 +532,7 @@ def phase_main(res, ctx, n_scans=4, rounds=3):
 
 
 # name stems of the kernels in link_tpu_torch/csrc (`<stem>_kernel`)
-HAND_KERNELS = ("sorted_join", "gather_conv", "w_frag", "window_conv",
+HAND_KERNELS = ("sorted_join", "join_pin", "gather_conv", "w_frag", "window_conv",
                 "gather_wgrad", "wgrad_reduce", "list_count", "list_scan",
                 "list_write", "row_gather", "slab_copy", "empty")
 
@@ -491,16 +571,12 @@ def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
                           "name": k[:160]} for t, c, k in by_name
                          if any(f"{fn}_kernel" in k for fn in HAND_KERNELS)],
     }
+    from link_tpu_torch.tools.join_sites import range_stats
+    for name in ranges:
+        out.setdefault("ranges", {})[name] = range_stats(prof, name, n_items)
     if not busy_ms:
         log("profile: no device time in the trace (not measured)")
         return out
-    for name in ranges:
-        host = [e for e in events if e.key == name
-                and e.device_type == DeviceType.CPU]
-        out.setdefault("ranges", {})[name] = {
-            "host_ms": sum(e.cpu_time_total for e in host) / 1e3 / n_items,
-            "device_ms": sum(e.device_time_total for e in host) / 1e3
-            / n_items or None}
     log(f"profile: device busy {busy_ms:.2f} ms per {unit} of {wall_ms:.2f} "
         f"ms wall (idle share {1 - busy_ms / wall_ms:.3f}); "
         f"{out[f'launches_per_{unit}']:.0f} kernel launches per {unit} "
@@ -508,21 +584,40 @@ def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
     for t, c, k in by_name[:12]:
         log(f"  {t:8.3f} ms {t / busy_ms:6.1%} x{c:<5d} {k[:90]}")
     for name, r in out.get("ranges", {}).items():
-        dev = (f"{r['device_ms']:.2f} ms" if r["device_ms"]
-               else "not measured")
-        log(f"  range {name}: host {r['host_ms']:.2f} ms, device {dev}")
+        log(f"  range {name}: {r['sites']:.0f} entered, host "
+            f"{r['host_ms']:.3f} ms, device {r['device_ms']:.4f} ms in "
+            f"{r['launches']:.0f} launches")
     return out
 
 
+def _check_join_sites(prof, unit: str, calls: float) -> None:
+    """Each join site's profiler range holds its `sorted_join` call and
+    nothing else: one kernel launch, two for the window form (the join and
+    its pinning), and no PyTorch operation on the card."""
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
+    r = prof["ranges"][JOIN_RANGE]
+    other = {k: v for k, v in r["kinds"].items()
+             if "sorted_join_kernel" not in k and "join_pin_kernel" not in k}
+    joins = sum(v for k, v in r["kinds"].items() if "sorted_join_kernel" in k)
+    if other or joins != calls or r["sites"] != calls:
+        raise AssertionError(f"join sites per {unit}: {r['sites']} ranges, "
+                             f"{joins} sorted_join launches (expected "
+                             f"{calls}), other device work {other}")
+
+
 def phase_profile(res, ctx):
-    """Device time by kernel over one pass of the seg path's scans."""
+    """Device time by kernel over one pass of the seg path's scans, and
+    the join sites' range."""
     import torch
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
     model, scans, fresh = ctx["model"], ctx["scans"], ctx["fresh"]
     with torch.inference_mode():
         inputs = [fresh(st) for st in scans]
         res["profile"] = _profile(lambda: [model(x) for x in inputs],
                                   len(scans), 1e3 / max(res["scans_per_s"]),
-                                  "scan")
+                                  "scan", ranges=(JOIN_RANGE,))
+    _check_join_sites(res["profile"], "scan",
+                      res["launches"]["sorted_join"] / len(scans))
 
 
 # --------------------------------------------------------------------------
@@ -599,8 +694,8 @@ def phase_det_kernels(res, ctx, iters=20):
     from link_tpu_torch.ops import kernels
     from link_tpu_torch.sparse import coords as C
     from link_tpu_torch.sparse.conv import add_window_form, build_conv_plan
-    from link_tpu_torch.sparse.spconv_engine import (spconv_downsample,
-                                                     spconv_out_shape)
+    from link_tpu_torch.sparse.spconv_engine import (
+        _tap_offsets as _spconv_taps, spconv_downsample, spconv_out_shape)
     from link_tpu_torch.models.scn import DET_CAPACITIES
 
     dev = torch.device("cuda")
@@ -611,15 +706,21 @@ def phase_det_kernels(res, ctx, iters=20):
     log(f"det kernel inputs: frame 0, {int(batch['nnz'])} voxels in {n} rows")
     offs = C.kernel_offsets_np(3)
 
-    # --- sorted_join on the 163,840-row level-0 table: exact mode, the
-    # SubM plan's 27 taps per row; lower-bound mode, its window form's 9
-    # group anchors per row
+    # --- sorted_join on the 163,840-row level-0 table: the SubM plan's
+    # window join (27 taps in 9 groups, the det main path's), its exact
+    # join and its 9 group anchors' lower bounds (the pair the window join
+    # replaced), and the adversarial inputs at full size
     table = C.build_table(coords, assume_sorted=True)
-    res["sorted_join_det_exact"] = _join_case(kernels, C, table, coords,
-                                              offs, "exact", iters)
+    anchors = [a for a, _ in C.offset_groups(offs)]
+    res["sorted_join_det_window"] = _join_case(
+        kernels, table, coords, offs, "window", iters, role="det level 0")
+    res["sorted_join_det_exact"] = _join_case(
+        kernels, table, coords, offs, "exact", iters, role="det level 0")
     res["sorted_join_lower_bound"] = _join_case(
-        kernels, C, table, coords, [a for a, _ in C.offset_groups(offs)],
-        "lower_bound", iters)
+        kernels, table, coords, anchors, "lower_bound", iters,
+        role="det level 0 anchors")
+    res["sorted_join_adversarial"] = _join_adversarial(
+        kernels, C, coords, iters, "det level 0")
 
     # --- window_conv on the level-0 and level-1 SubM plans
     plan0 = add_window_form(build_conv_plan(coords, coords, nnz, offs, n,
@@ -634,6 +735,14 @@ def phase_det_kernels(res, ctx, iters=20):
                                             in_sorted=True, table=table1),
                             table1, offs, 1)
     log(f"det level 1: {int(nnz1)} voxels in {c1.shape[0]} rows")
+    # the level-1 plan's window join, and the down plan into level 1: base
+    # j * 2 formed in the kernel, taps t - p
+    down_taps = _spconv_taps((3, 3, 3)) - np.array([1, 1, 1], np.int32)
+    res["sorted_join_det_plans"] = [
+        _join_case(kernels, table1, c1, offs, "window", iters,
+                   role="det level 1"),
+        _join_case(kernels, table, c1, down_taps, "exact", iters,
+                   mult=(2, 2, 2), role="det down 0->1")]
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(shape, dtype, scale=1.0):
@@ -693,6 +802,58 @@ def phase_det_golden(res, ctx):
         raise AssertionError(f"det golden: {worst} rel err {errs[worst]}")
 
 
+def phase_det_elk_golden(res, ctx):
+    """The reference TSELKBlock golden at the det capacity (160,000 voxels
+    in 163,840 rows; cos basis, det channel grouping, r = 3) in float32 on
+    the card, through the sparse aux path (its window join through
+    `sorted_join` at real spans) and the dense one, against the reference
+    output, held as tests/test_torch_join_sites.py holds it on the CPU."""
+    import torch
+    from link_tpu_torch.models.elk import ELKBlock
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.ops.elk import use_dense_aux
+    from link_tpu_torch.sparse.coords import INVALID_COORD
+    from link_tpu_torch.sparse.tensor import make_sparse_tensor
+
+    g = np.load(TSELK_GOLDEN)
+    coords, feats, want = g["coords"], g["feats"], g["out"]
+    inc, block_sz = int(g["inc"]), int(g["block_sz"])
+    n, cap = len(coords), 163840
+    cpad = np.full((cap, 4), INVALID_COORD, np.int32)
+    fpad = np.zeros((cap, inc), np.float32)
+    cpad[:n], fpad[:n] = coords, feats
+    block = ELKBlock(inc, aux_capacity=cap, baseop="cos", det_grouping=True,
+                     device="cuda")
+    block.load_state_dict({k[3:].replace("__", "."): torch.from_numpy(
+        np.array(g[k])) for k in g.files if k.startswith("sd_")}, strict=True)
+    errs = {}
+    for path in ("sparse", "dense"):
+        ext = None
+        if path == "dense":
+            ext = tuple(int(v) for v in coords[:, :3].max(0) + 1) + (
+                int(coords[:, 3].max()) + 1,)
+        st = make_sparse_tensor(fpad, cpad, nnz=n, grid_extent=ext,
+                                device="cuda")
+        if (use_dense_aux(st, block_sz, 3, 2 * inc) is not None) != (
+                path == "dense"):
+            raise AssertionError(f"tselk: the {path} aux path was not taken")
+        before = kernels.sorted_join.launches
+        with torch.inference_mode():
+            got = block(st, block_sz, 3).feats[:n].float().cpu().numpy()
+        joins = kernels.sorted_join.launches - before
+        errs[path] = float(np.abs(got - want).max()
+                           / (np.abs(want).max() + 1e-9))
+        log(f"tselk full-scale golden, {path} aux path: rel err "
+            f"{errs[path]:.3g} (tol {GOLDEN_REL_TOL}); {joins} sorted_join "
+            "launches")
+        if not np.isfinite(got).all() or not errs[path] < GOLDEN_REL_TOL:
+            raise AssertionError(f"tselk {path}: rel err {errs[path]}")
+        if path == "sparse" and joins < 2:
+            raise AssertionError("tselk sparse path: the joins did not run "
+                                 "through sorted_join")
+    res["tselk_golden_rel_err"] = errs
+
+
 def phase_det_main(res, ctx, n_frames=2, rounds=3):
     import torch
     from link_tpu_torch.inference import SingleFramePredictor
@@ -740,9 +901,9 @@ def phase_det_main(res, ctx, n_frames=2, rounds=3):
                 if isinstance(mod, SubMConv3d)
                 or (isinstance(mod, SparseConv3d)
                     and math.prod(mod.kernel_size) > 1)) + 4  # 3 downs + extra
-    # 4 SubM levels (exact join + the window form's lower bound each),
-    # 3 downs and the extra conv (exact join each)
-    plans = 4 * 2 + 4
+    # 4 SubM levels (one window join each: the kernel map and its window
+    # form), 3 downs and the extra conv (one exact join each)
+    plans = 4 + 4
     per_frame = {k: v / n_frames for k, v in launches.items()}
     res["det_launches"] = launches
     res["det_frames_per_s"] = [n_frames / t for t in times]
@@ -767,10 +928,13 @@ def phase_det_main(res, ctx, n_frames=2, rounds=3):
 
 
 def phase_det_profile(res, ctx):
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
     pred, batches = ctx["pred"], ctx["det_batches"]
     res["det_profile"] = _profile(
         lambda: [pred.forward(b) for b in batches], len(batches),
-        1e3 / max(res["det_frames_per_s"]), "frame")
+        1e3 / max(res["det_frames_per_s"]), "frame", ranges=(JOIN_RANGE,))
+    _check_join_sites(res["det_profile"], "frame",
+                      res["det_launches"]["sorted_join"] / len(batches))
 
 
 # --------------------------------------------------------------------------
@@ -1163,11 +1327,13 @@ def phase_train_main(res, ctx, timed_steps=6):
 
 
 def phase_train_profile(res, ctx):
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
     from link_tpu_torch.train.trainer import RANGES
     step, it = ctx["train_step"], ctx["train_next"]
     prof = _profile(lambda: step(it), 1, min(res["train_ms_per_step"]),
-                    "step", ranges=RANGES)
+                    "step", ranges=RANGES + (JOIN_RANGE,))
     res["train_profile"] = prof
+    _check_join_sites(prof, "step", res["train_launches"]["sorted_join"])
     r = prof.get("ranges")
     if r and r[RANGES[0]]["device_ms"]:
         # autograd issues the backward's kernels from its own thread, so
@@ -1379,9 +1545,10 @@ def main() -> int:
     ctx = {}
     for phase in (phase_build, phase_kernels, phase_golden, phase_main,
                   phase_profile, phase_det_kernels, phase_det_golden,
-                  phase_det_main, phase_det_profile, phase_train_kernels,
-                  phase_train_grad, phase_train_golden, phase_train_main,
-                  phase_train_profile, phase_path_shapes, phase_probes):
+                  phase_det_elk_golden, phase_det_main, phase_det_profile,
+                  phase_train_kernels, phase_train_grad, phase_train_golden,
+                  phase_train_main, phase_train_profile, phase_path_shapes,
+                  phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

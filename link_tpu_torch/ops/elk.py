@@ -5,7 +5,7 @@ PyTorch counterpart of `link_tpu/ops/elk.py`:
     aux blocks;
   * aux_to_voxel: count-weighted mean over each aux cell's r^3 window of
     aux cells, broadcast back to the voxels. The window's self-join runs
-    through `CoordTable.query` (the `sorted_join` kernel); the window sum is
+    through `join_taps` (the `sorted_join` kernel); the window sum is
     a plain gather-sum;
   * elk_aux_window_dense: the same result on a dense aux grid (odd r only),
     gated by use_dense_aux.
@@ -115,11 +115,7 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
     offsets = coordlib.kernel_offsets_np((r, r, r), stride=1, dilation=1)
     # aux coords come from unique_coords, so they are already in key order
     table = coordlib.build_table(aux.coords, assume_sorted=True)
-    offs = torch.tensor(offsets, dtype=torch.int32, device=aux.device)
-    q = torch.cat([aux.coords[None, :, :3] + offs[:, None, :],
-                   aux.coords[None, :, 3:].expand(offs.shape[0], -1, -1)],
-                  dim=-1)
-    nb_idx = table.query(q).T                                  # (M_aux, r^3)
+    nb_idx = coordlib.join_taps(table, aux.coords, offsets).T  # (M_aux, r^3)
 
     f = torch.cat([aux.feats, aux.feats.new_ones((aux.capacity, 1))], dim=1)
     f = f * counts.to(aux.feats.dtype)[:, None]

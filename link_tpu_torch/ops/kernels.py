@@ -3,10 +3,12 @@
 Seven kernels. Three are ports of the Pallas kernels of
 `link_tpu/ops/pallas_kernels.py`:
 
-  * `sorted_join` (csrc/sorted_join.cu) replaces `pallas_join` (:62-89):
-    lower-bound join of packed coordinate keys against a sorted key table,
-    in two modes: the exact hit (perm[pos] or -1) and the lower bound
-    itself (the window plan's base rows).
+  * `sorted_join` (csrc/sorted_join.cu) replaces `pallas_join` (:62-89)
+    and the XLA fusion that forms its queries: each query is
+    pack(base * mult + offset), formed in the kernel from the base rows and
+    the tap offsets, and joined against a sorted key table, in three modes:
+    the exact hit (perm[pos] or -1), the lower bound itself, and the window
+    form's (in_idx, base_pos, slot) of `grouped_window_query`.
   * `gather_conv` (csrc/gather_conv.cu) replaces `pallas_sparse_conv`
     (:111-144): out[m] = sum_k feats[idx[k, m]] @ W[k], float32
     accumulation, idx -1 reads a zero row. In training it also computes the
@@ -47,13 +49,14 @@ that holds every float32 kernel to its twin.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -188,76 +191,243 @@ def _raise_on(name: str, rc: int) -> None:
 # --------------------------------------------------------------------------
 # sorted_join
 
+# Coordinate packing (link_tpu/sparse/coords.py:pack_coords), the rule by
+# which `sorted_join` forms its queries. x, y in [-OFFSET_XY, 2^14 -
+# OFFSET_XY), z in [-OFFSET_Z, 2^12 - OFFSET_Z), batch >= 0; anything else
+# packs to (INT32_MAX, INT32_MAX).
+X_BITS = 14
+Y_BITS = 14
+Z_BITS = 12
+OFFSET_XY = 512  # shift applied so slightly-negative probes stay packable
+OFFSET_Z = 512
+SPAN_X = 1 << X_BITS
+SPAN_Y = 1 << Y_BITS
+SPAN_Z = 1 << Z_BITS
+
+
+def pack_coords(coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack (N, 4) int32 (x, y, z, b) coords into an order-preserving int32
+    key pair (hi, lo). Out-of-range / sentinel coords map to (INT32_MAX,
+    INT32_MAX). Sort order of (hi, lo) is lexicographic (b, z, y, x)."""
+    x = coords[:, 0] + OFFSET_XY
+    y = coords[:, 1] + OFFSET_XY
+    z = coords[:, 2] + OFFSET_Z
+    b = coords[:, 3]
+    valid = ((x >= 0) & (x < SPAN_X) & (y >= 0) & (y < SPAN_Y)
+             & (z >= 0) & (z < SPAN_Z) & (b >= 0))
+    hi = (b << Z_BITS) | (z & (SPAN_Z - 1))
+    lo = (y << X_BITS) | (x & (SPAN_X - 1))
+    sent = torch.full_like(hi, INT32_MAX)
+    hi = torch.where(valid, hi, sent).to(torch.int32)
+    lo = torch.where(valid, lo, sent).to(torch.int32)
+    return hi, lo
+
 
 def key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """One int64 key per (hi, lo) pair. Both halves are non-negative int32,
-    so the int64 order equals the lexicographic (hi, lo) order."""
+    """One int64 key per (hi, lo) pair. lo is never negative, so the int64
+    order equals the lexicographic (hi, lo) order."""
     return hi.to(torch.int64) * (2**31) + lo.to(torch.int64)
 
 
-def sorted_join_plain(t_hi: torch.Tensor, t_lo: torch.Tensor,
-                      perm: torch.Tensor, q_hi: torch.Tensor,
-                      q_lo: torch.Tensor,
-                      mode: str = "exact") -> torch.Tensor:
-    """Plain twin of `sorted_join`: int64 keys, `torch.searchsorted` for the
-    lower bound, then the exact-hit test (mode "exact") or the bound clamped
-    to n - 1 (mode "lower_bound")."""
-    _check_mode(mode)
-    n = t_hi.shape[0]
-    if n == 0:
-        return torch.full_like(q_hi, -1)
-    tkey = key64(t_hi, t_lo)
-    qkey = key64(q_hi, q_lo)
-    pos = torch.searchsorted(tkey, qkey).clamp_(max=n - 1)
-    if mode == "lower_bound":
-        return pos.to(torch.int32)
-    hit = (tkey[pos] == qkey) & (q_hi != INT32_MAX)
-    return torch.where(hit, perm[pos], torch.full_like(q_hi, -1))
+def offset_groups(offsets):
+    """Group tap offsets by (dy, dz); members ordered by x. Returns
+    [((ox0, oy, oz), [(ox, tap_id), ...]), ...] in first-appearance order of
+    the (dy, dz) pairs (link_tpu/sparse/coords.py:931-943)."""
+    groups = {}
+    for t, (ox, oy, oz) in enumerate(_offset_rows(offsets)):
+        groups.setdefault((oy, oz), []).append((ox, t))
+    glist = []
+    for (oy, oz), taps in groups.items():
+        taps = sorted(taps)
+        glist.append(((taps[0][0], oy, oz), taps))
+    return glist
 
 
-_JOIN_MODES = {"exact": 0, "lower_bound": 1}
+def _offset_rows(offsets) -> Tuple[Tuple[int, int, int], ...]:
+    rows = tuple(tuple(int(v) for v in o) for o in offsets)
+    if not rows or any(len(o) != 3 for o in rows):
+        raise ValueError("sorted_join: offsets must be K >= 1 rows of 3")
+    return rows
+
+
+JOIN_MAX_TAPS = 128     # offsets one launch takes (csrc/sorted_join.cu)
+JOIN_MAX_GROUPS = 64    # (dy, dz) groups one launch takes
+JOIN_BLOCK_WARPS = 8    # warps per block (the window form's scratch)
+_JOIN_MODES = {"exact": 0, "lower_bound": 1, "window": 2}
+_ZERO_TAP = ((0, 0, 0),)
 
 
 def _check_mode(mode: str) -> None:
     if mode not in _JOIN_MODES:
-        raise ValueError(f"sorted_join: mode {mode!r} (exact, lower_bound)")
+        raise ValueError(f"sorted_join: mode {mode!r} (exact, lower_bound, "
+                         "window)")
+
+
+@functools.lru_cache(maxsize=None)
+def _join_taps(offsets: tuple, mult: tuple, mode: str):
+    """(groups, host int32 array) of one launch: the taps grouped as the
+    kernel walks them (by (dy, dz), x ascending; in mode "lower_bound" each
+    offset alone, in order) and the parameter block the C entry reads: k,
+    g, mult, gstart[0..g], order[0..k), off[0..k) x 3. Cached per
+    (offsets, mult, mode), so no launch builds it anew."""
+    if mode == "lower_bound":
+        groups = [(o, [(o[0], t)]) for t, o in enumerate(offsets)]
+    else:
+        groups = offset_groups(offsets)
+    k, g = len(offsets), len(groups)
+    if k > JOIN_MAX_TAPS or g > JOIN_MAX_GROUPS:
+        raise ValueError(f"sorted_join: {k} offsets in {g} groups (at most "
+                         f"{JOIN_MAX_TAPS} in {JOIN_MAX_GROUPS})")
+    gstart, order = [0], []
+    for _, taps in groups:
+        order += [t for _, t in taps]
+        gstart.append(len(order))
+    vals = [k, g, *mult, *gstart, *order]
+    for t in order:
+        vals += offsets[t]
+    return groups, (ctypes.c_int * len(vals))(*vals)
+
+
+def sorted_join_plain(t_hi: torch.Tensor, t_lo: torch.Tensor,
+                      perm: torch.Tensor, base: torch.Tensor, offsets=None,
+                      mult=None, mode: str = "exact"):
+    """Plain twin of `sorted_join`: the queries by `pack_coords` over
+    base * mult + offset, int64 keys, `torch.searchsorted` for the lower
+    bound, then the hit test, the clamp, and in mode "window" the group
+    anchors' bounds, their pinning and the slots."""
+    _check_mode(mode)
+    offs = _ZERO_TAP if offsets is None else _offset_rows(offsets)
+    lead = base.shape[:-1]
+    base = base.reshape(-1, 4)
+    k, m, n = len(offs), base.shape[0], t_hi.shape[0]
+    dev = base.device
+    groups = (offset_groups(offs) if mode == "window" else None)
+    if n == 0:
+        full = torch.full((k, m), -1, dtype=torch.int32, device=dev)
+        if mode == "window":
+            return (full, torch.full((len(groups), m), -1, dtype=torch.int32,
+                                     device=dev), full.to(torch.int8))
+        return full.reshape((k,) + lead if offsets is not None else lead)
+    tkey = key64(t_hi, t_lo)
+
+    def search(rows):
+        o = torch.tensor(rows, dtype=torch.int32, device=dev)
+        xyz = base[:, :3]
+        if mult is not None:
+            xyz = xyz * torch.tensor(mult, dtype=torch.int32, device=dev)
+        q = torch.cat([xyz[None] + o[:, None],
+                       base[None, :, 3:].expand(len(rows), -1, -1)], -1)
+        q_hi, q_lo = pack_coords(q.reshape(-1, 4))
+        qkey = key64(q_hi, q_lo)
+        pos = torch.searchsorted(tkey, qkey).clamp_(max=n - 1)
+        return q_hi, qkey, pos
+
+    if mode == "lower_bound":
+        pos = search(offs)[2].to(torch.int32).reshape(k, m)
+        return pos.reshape((k,) + lead if offsets is not None else lead)
+    q_hi, qkey, pos = search(offs)
+    hit = (tkey[pos] == qkey) & (q_hi != INT32_MAX)
+    in_idx = torch.where(hit, perm[pos], torch.full_like(q_hi, -1))
+    in_idx = in_idx.reshape(k, m)
+    if mode == "exact":
+        return in_idx.reshape((k,) + lead if offsets is not None else lead)
+    # window: one lower bound per (dy, dz) group at its smallest x; padding
+    # anchors sort last and would clamp to n - 1, so they are pinned to the
+    # group's last valid base (link_tpu/sparse/coords.py:1089-1096)
+    a_hi, _, apos = search([a for a, _ in groups])
+    g = len(groups)
+    apos = apos.to(torch.int32).reshape(g, m)
+    valid = a_hi.reshape(g, m) != INT32_MAX
+    last_valid = torch.where(valid, apos, torch.zeros_like(apos)).amax(
+        dim=1, keepdim=True)
+    base_pos = torch.where(valid, apos, last_valid)
+    tap_g = [0] * k
+    for gi, (_, taps) in enumerate(groups):
+        for _, t in taps:
+            tap_g[t] = gi
+    tb = base_pos.long()[torch.tensor(tap_g, device=dev)]     # (K, M)
+    slot = torch.where(in_idx >= 0, in_idx.long() - tb, -1)
+    return in_idx, base_pos.contiguous(), slot.to(torch.int8)
 
 
 def sorted_join(t_hi: torch.Tensor, t_lo: torch.Tensor, perm: torch.Tensor,
-                q_hi: torch.Tensor, q_lo: torch.Tensor,
-                mode: str = "exact") -> torch.Tensor:
-    """Lower bound of each query key pair in the (hi, lo)-sorted table.
-    mode "exact": perm[lower_bound] on an exact match, else -1; hi ==
-    INT32_MAX always misses. mode "lower_bound": the bound itself, clamped
-    to n - 1, for every query (perm is not read). Table (N,) int32 x 3,
-    queries (Q,) int32 x 2, result (Q,) int32."""
+                base: torch.Tensor, offsets=None, mult=None,
+                mode: str = "exact"):
+    """Join of the queries pack(base * mult + offset) against a table of
+    (hi, lo) keys sorted lexicographically, perm (N,) the original row of
+    each table row; all int32. base (..., 4) (x, y, z, b) rows; offsets K
+    rows (dx, dy, dz) of host integers (at most JOIN_MAX_TAPS), or None for
+    one zero offset; mult an optional (mx, my, mz) on the base xyz. The
+    queries are formed in the kernel: no query, offset or anchor array is
+    made on the device.
+
+    mode "exact": (K, ...) int32, perm[lower bound] on an exact match,
+    else -1; a query that packs to hi == INT32_MAX misses. mode
+    "lower_bound": (K, ...) the lower bounds themselves, clamped to n - 1.
+    mode "window" (base (M, 4); offsets grouped by (dy, dz) as
+    `offset_groups`): (in_idx (K, M) as "exact", base_pos (G, M) int32 the
+    lower bound of each group's smallest-x offset clamped to n - 1, with a
+    padding anchor pinned to the group's largest valid base, slot (K, M)
+    int8 in_idx - base_pos of the tap's group on a hit, else -1): the
+    window-form plan of `link_tpu`'s grouped_window_query. With offsets
+    None the leading axis K is left out. One launch (two in mode "window",
+    the second pinning the padding anchors)."""
     _check_mode(mode)
-    if _on_cpu(t_hi, t_lo, perm, q_hi, q_lo):
-        return sorted_join_plain(t_hi, t_lo, perm, q_hi, q_lo, mode)
-    _check_cuda("sorted_join", t_hi, t_lo, perm, q_hi, q_lo)
-    for t in (t_hi, t_lo, perm, q_hi, q_lo):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError("sorted_join: operands must be 1-D int32")
-    n, q = t_hi.shape[0], q_hi.shape[0]
-    if t_lo.shape[0] != n or perm.shape[0] != n or q_lo.shape[0] != q:
-        raise ValueError("sorted_join: mismatched lengths")
+    if _on_cpu(t_hi, t_lo, perm, base):
+        return sorted_join_plain(t_hi, t_lo, perm, base, offsets, mult, mode)
+    _check_cuda("sorted_join", t_hi, t_lo, perm, base)
+    for t in (t_hi, t_lo, perm, base):
+        if t.dtype != torch.int32:
+            raise ValueError("sorted_join: operands must be int32")
+    if t_hi.dim() != 1 or base.shape[-1:] != (4,):
+        raise ValueError("sorted_join: table (N,), base (..., 4)")
+    lead = base.shape[:-1]
+    base = base.reshape(-1, 4)
+    n, m = t_hi.shape[0], base.shape[0]
+    if t_lo.shape != (n,) or perm.shape != (n,):
+        raise ValueError("sorted_join: mismatched table lengths")
+    if mode == "window" and (offsets is None or len(lead) != 1):
+        raise ValueError("sorted_join: mode window takes base (M, 4) and "
+                         "offsets")
+    if base.data_ptr() % 16:
+        raise ValueError("sorted_join: base rows must be 16-byte aligned")
+    offs = _ZERO_TAP if offsets is None else _offset_rows(offsets)
+    mul = (1, 1, 1) if mult is None else tuple(int(v) for v in mult)
+    groups, params = _join_taps(offs, mul, mode)
+    k, g = len(offs), len(groups)
+    dev = base.device
+    out = torch.empty((k, m), dtype=torch.int32, device=dev)
+    base_pos = slot = partial = None
+    if mode == "window":
+        base_pos = torch.empty((g, m), dtype=torch.int32, device=dev)
+        slot = torch.empty((k, m), dtype=torch.int8, device=dev)
     if n == 0:
-        return torch.full_like(q_hi, -1)
-    out = torch.empty_like(q_hi)
-    if q == 0:
-        return out
-    rc = _entry(sorted_join)(
-        t_hi.data_ptr(), t_lo.data_ptr(), perm.data_ptr(), n,
-        q_hi.data_ptr(), q_lo.data_ptr(), out.data_ptr(), q,
-        _JOIN_MODES[mode], _stream(q_hi))
-    _raise_on("sorted_join", rc)
-    sorted_join.launches += 1
-    return out
+        out.fill_(-1)
+        if mode == "window":
+            return out, base_pos.fill_(-1), slot.fill_(-1)
+    elif m > 0:
+        if mode == "window":
+            # the kernel's blocks: 32-row tiles, each over up to g warps
+            blocks = -(-(-(-m // 32) * g) // JOIN_BLOCK_WARPS)
+            partial = torch.empty(blocks * (g + 1), dtype=torch.int32,
+                                  device=dev)
+        rc = _entry(sorted_join)(
+            t_hi.data_ptr(), t_lo.data_ptr(), perm.data_ptr(), n,
+            base.data_ptr(), m, params, _JOIN_MODES[mode], out.data_ptr(),
+            None if base_pos is None else base_pos.data_ptr(),
+            None if slot is None else slot.data_ptr(),
+            None if partial is None else partial.data_ptr(), _stream(base))
+        _raise_on("sorted_join", rc)
+        sorted_join.launches += 1
+    if mode == "window":
+        return out, base_pos, slot
+    return out.view((k,) + lead if offsets is not None else lead)
 
 
 _kernel(sorted_join, "sorted_join.cu",
         "link_tpu/ops/pallas_kernels.py:62",
-        [_P, _P, _P, _I, _P, _P, _P, _LL, _I, _P])
+        [_P, _P, _P, _I, _P, _I, ctypes.POINTER(ctypes.c_int), _I, _P, _P,
+         _P, _P, _P])
 
 
 # --------------------------------------------------------------------------

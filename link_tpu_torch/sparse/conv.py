@@ -14,7 +14,9 @@ conv over sorted input rows whose caller prefers the window form gives
 its plan the window arrays (base_pos, slot, groups) and runs through the
 hand-written `window_conv` kernel when a whole G-row window is narrow
 enough (`window_chunk`, as `link_tpu` decides). Every plan's join runs
-through the `sorted_join` kernel (`link_tpu_torch/ops/kernels.py`).
+through the `sorted_join` kernel (`link_tpu_torch/ops/kernels.py`), one
+call per plan: the window arrays come from the same call when the first
+conv to build the plan prefers the window form.
 """
 
 from __future__ import annotations
@@ -47,16 +49,36 @@ def mirror_perm(offsets: np.ndarray):
 def build_conv_plan(in_coords: torch.Tensor, out_coords: torch.Tensor,
                     out_nnz: torch.Tensor, offsets, in_capacity: int,
                     in_sorted: bool = False,
-                    table: Optional[coordlib.CoordTable] = None) -> ConvPlan:
+                    table: Optional[coordlib.CoordTable] = None,
+                    window_quantum: Optional[int] = None) -> ConvPlan:
     """Kernel map: for each output row and tap, the input row at
-    out_coord + offset (or -1). One join over all K * M queries."""
+    out_coord + offset (or -1). One join over all K * M queries. With
+    `window_quantum` (a submanifold plan that takes the window form, see
+    `add_window_form`) the same join also gives the window arrays."""
     if table is None:
         table = coordlib.build_table(in_coords, assume_sorted=in_sorted)
     offs_np = np.asarray(offsets)
     mir = mirror_perm(offs_np) if out_coords is in_coords else None
+    if window_quantum is not None:
+        in_idx, base_pos, slot = coordlib.window_join(table, out_coords,
+                                                      offs_np)
+        return _with_window(ConvPlan(in_idx=in_idx, out_coords=out_coords,
+                                     out_nnz=out_nnz,
+                                     in_capacity=in_capacity, mirror=mir),
+                            base_pos, slot, offs_np, window_quantum)
     in_idx = coordlib.join_taps(table, out_coords, offs_np)
     return ConvPlan(in_idx=in_idx, out_coords=out_coords, out_nnz=out_nnz,
                     in_capacity=in_capacity, mirror=mir)
+
+
+def _with_window(plan: ConvPlan, base_pos: torch.Tensor, slot: torch.Tensor,
+                 offs_np: np.ndarray, quantum: int) -> ConvPlan:
+    glist = coordlib.offset_groups(offs_np)
+    groups = tuple(tuple(t for _, t in taps) for _, taps in glist)
+    self_gi = next((gi for gi, ((ox0, oy, oz), _) in enumerate(glist)
+                    if oy == 0 and oz == 0 and ox0 in (0, -quantum)), None)
+    return plan.replace(base_pos=base_pos, slot=slot, groups=groups,
+                        self_group=self_gi)
 
 
 def add_window_form(plan: ConvPlan, table: coordlib.CoordTable, offsets,
@@ -64,16 +86,11 @@ def add_window_form(plan: ConvPlan, table: coordlib.CoordTable, offsets,
     """The plan with its window form (base_pos, slot, groups, self_group;
     link_tpu/sparse/conv.py:111-145). For a submanifold plan over input
     rows in pack-key order (`table` with the identity perm) whose taps
-    form x-runs with the step `quantum` of the rows' x lattice."""
+    form x-runs with the step `quantum` of the rows' x lattice. One
+    `window_join` (its in_idx equals the plan's)."""
     offs_np = np.asarray(offsets)
-    base_pos, slot = coordlib.window_rows(table, plan.out_coords, offs_np,
-                                          plan.in_idx)
-    glist = coordlib.offset_groups(offs_np)
-    groups = tuple(tuple(t for _, t in taps) for _, taps in glist)
-    self_gi = next((gi for gi, ((ox0, oy, oz), _) in enumerate(glist)
-                    if oy == 0 and oz == 0 and ox0 in (0, -quantum)), None)
-    return plan.replace(base_pos=base_pos, slot=slot, groups=groups,
-                        self_group=self_gi)
+    _, base_pos, slot = coordlib.window_join(table, plan.out_coords, offs_np)
+    return _with_window(plan, base_pos, slot, offs_np, quantum)
 
 
 def invert_plan(plan: ConvPlan) -> torch.Tensor:
@@ -249,6 +266,14 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
         out_sorted = True if strided else x.coords_sorted
         offsets = coordlib.kernel_offsets_np(kernel_size, stride=x.stride,
                                              dilation=dilation)
+        # the window form needs occupied x cells on the taps' x step
+        # (dilation 1), rows in table order and a submanifold plan with a
+        # mirror
+        window_q = (x.stride[0] if prefer_window and not strided
+                    and x.coords_sorted and dilation[0] == 1
+                    and mirror_perm(offsets) is not None
+                    and coordlib.can_group_offsets(offsets, x.stride[0])
+                    else None)
         plan = x.kmaps.get(key)
         if plan is None:
             if strided:
@@ -270,19 +295,17 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
                 x.kmaps[tkey] = table
             plan = build_conv_plan(x.coords, out_coords, out_nnz, offsets,
                                    in_capacity=x.capacity,
-                                   in_sorted=x.coords_sorted, table=table)
+                                   in_sorted=x.coords_sorted, table=table,
+                                   window_quantum=window_q)
             if strided and plan.mirror is None:
                 # eager inverse map for the U-Net's matching transposed conv
                 plan = plan.replace(inv_idx=invert_plan(plan))
             x.kmaps[key] = plan
-        # the window form needs occupied x cells on the taps' x step
-        # (dilation 1) and rows in table order; a plan first built for a
-        # caller that did not prefer it gains the arrays here
-        if (prefer_window and plan.groups is None and plan.mirror is not None
-                and x.coords_sorted and dilation[0] == 1
-                and coordlib.can_group_offsets(offsets, x.stride[0])):
+        elif window_q is not None and plan.groups is None:
+            # a plan first built for a caller that did not prefer the
+            # window form gains the arrays here
             plan = add_window_form(plan, x.kmaps[("table", x.stride)],
-                                   offsets, x.stride[0])
+                                   offsets, window_q)
             x.kmaps[key] = plan
 
         feats = apply_conv_plan(x.feats, weight, plan,

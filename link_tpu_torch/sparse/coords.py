@@ -6,10 +6,11 @@ pair of int32 keys `(hi, lo)`; deduplication is a stable sort over the
 keys and a join is a lower-bound search in a sorted key table. Both are
 deterministic and collision-free.
 
-The join (`CoordTable.query`, `join_taps`) and the window form's base
-rows (`window_rows`, one lower bound per (dy, dz) tap group) run through
-the hand-written `sorted_join` kernel on CUDA tensors
-(`link_tpu_torch/ops/kernels.py`).
+The joins (`CoordTable.query`, `join_taps`, and `window_join`, which adds
+the window form's base rows and slots) run through the hand-written
+`sorted_join` kernel on CUDA tensors, which forms the queries from the base
+rows and the tap offsets itself (`link_tpu_torch/ops/kernels.py`); each
+join site is one call inside the profiler range `JOIN_RANGE`.
 
 Bit budget: x, y in [-OFFSET, 2^14 - OFFSET), z in [-OFFSET_Z,
 2^12 - OFFSET_Z), batch in [0, 2^17). Padding rows carry `INVALID_COORD`,
@@ -25,23 +26,19 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops import kernels
+from ..ops.kernels import INT32_MAX, offset_groups, pack_coords
 
 Int3 = Tuple[int, int, int]
 
-X_BITS = 14
-Y_BITS = 14
-Z_BITS = 12
-OFFSET_XY = 512  # shift applied so slightly-negative probes stay packable
-OFFSET_Z = 512
-SPAN_X = 1 << X_BITS
-SPAN_Y = 1 << Y_BITS
-SPAN_Z = 1 << Z_BITS
-
-INT32_MAX = 2**31 - 1
 # Sentinel coordinate value marking padding rows (never packs to a valid key).
 INVALID_COORD = -(2**20)
+# profiler range around every join site: forming the queries, the join,
+# and the window form's pinning and slots (read by chip_smoke.py and
+# link_tpu_torch/tools/join_sites.py)
+JOIN_RANGE = "sparse/join_site"
 
 
 def make_ntuple(x: Union[int, Sequence[int]], ndim: int = 3) -> Tuple[int, ...]:
@@ -49,24 +46,6 @@ def make_ntuple(x: Union[int, Sequence[int]], ndim: int = 3) -> Tuple[int, ...]:
         assert len(x) == ndim
         return tuple(int(v) for v in x)
     return (int(x),) * ndim
-
-
-def pack_coords(coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pack (N, 4) int32 (x, y, z, b) coords into an order-preserving int32
-    key pair (hi, lo). Out-of-range / sentinel coords map to (INT32_MAX,
-    INT32_MAX). Sort order of (hi, lo) is lexicographic (b, z, y, x)."""
-    x = coords[:, 0] + OFFSET_XY
-    y = coords[:, 1] + OFFSET_XY
-    z = coords[:, 2] + OFFSET_Z
-    b = coords[:, 3]
-    valid = ((x >= 0) & (x < SPAN_X) & (y >= 0) & (y < SPAN_Y)
-             & (z >= 0) & (z < SPAN_Z) & (b >= 0))
-    hi = (b << Z_BITS) | (z & (SPAN_Z - 1))
-    lo = (y << X_BITS) | (x & (SPAN_X - 1))
-    sent = torch.full_like(hi, INT32_MAX)
-    hi = torch.where(valid, hi, sent).to(torch.int32)
-    lo = torch.where(valid, lo, sent).to(torch.int32)
-    return hi, lo
 
 
 def key_is_valid(hi: torch.Tensor) -> torch.Tensor:
@@ -98,11 +77,10 @@ class CoordTable:
 
     def query(self, coords: torch.Tensor) -> torch.Tensor:
         """Index of each query coord (..., 4) in the original coordinate
-        rows, or -1 when absent. One `sorted_join` launch per call."""
-        shape = coords.shape[:-1]
-        q_hi, q_lo = pack_coords(coords.reshape(-1, coords.shape[-1]))
-        return kernels.sorted_join(self.hi, self.lo, self.perm,
-                                   q_hi, q_lo).reshape(shape)
+        rows, or -1 when absent: the join with one zero offset, one
+        `sorted_join` launch."""
+        with record_function(JOIN_RANGE):
+            return kernels.sorted_join(self.hi, self.lo, self.perm, coords)
 
 
 # `link_tpu` builds the dense RankGrid join index for lattices up to this
@@ -197,25 +175,9 @@ def kernel_offsets_np(size: Union[int, Int3], stride: Union[int, Int3] = 1,
                            make_ntuple(dilation))
 
 
-def offset_groups(offsets: np.ndarray):
-    """Group tap offsets by (dy, dz); members ordered by x. Returns
-    [((ox0, oy, oz), [(ox, tap_id), ...]), ...] in first-appearance order of
-    the (dy, dz) pairs (link_tpu/sparse/coords.py:931-943)."""
-    offs = np.asarray(offsets)
-    groups = {}
-    for t in range(offs.shape[0]):
-        groups.setdefault((int(offs[t, 1]), int(offs[t, 2])), []).append(
-            (int(offs[t, 0]), t))
-    glist = []
-    for (oy, oz), taps in groups.items():
-        taps = sorted(taps)
-        glist.append(((taps[0][0], oy, oz), taps))
-    return glist
-
-
 def can_group_offsets(offsets: np.ndarray, quantum: int) -> bool:
     """True when every (dy, dz) tap group's x-offsets form an arithmetic
-    run with step == quantum (the window_rows precondition)."""
+    run with step == quantum (the window_join precondition)."""
     for _, taps in offset_groups(offsets):
         xs = [ox for ox, _ in taps]
         if any(b - a != quantum for a, b in zip(xs, xs[1:])):
@@ -224,57 +186,32 @@ def can_group_offsets(offsets: np.ndarray, quantum: int) -> bool:
 
 
 def join_taps(table: CoordTable, base_coords: torch.Tensor,
-              offsets: np.ndarray) -> torch.Tensor:
-    """Kernel map in_idx[k, j]: the original row of base_coords[j] +
-    offsets[k], or -1. One exact `sorted_join` launch over all K * M
-    queries."""
-    offs = torch.tensor(np.asarray(offsets), dtype=torch.int32,
-                        device=base_coords.device)            # (K, 3)
-    qxyz = base_coords[None, :, :3] + offs[:, None, :]        # (K, M, 3)
-    qb = base_coords[None, :, 3:].expand(offs.shape[0], -1, -1)
-    return table.query(torch.cat([qxyz, qb], dim=-1))         # (K, M)
+              offsets: np.ndarray, mult=None) -> torch.Tensor:
+    """Kernel map in_idx[k, j]: the original row of base_coords[j] (xyz
+    times `mult` where given) + offsets[k], or -1. One exact `sorted_join`
+    launch over all K * M queries, formed in the kernel."""
+    with record_function(JOIN_RANGE):
+        return kernels.sorted_join(table.hi, table.lo, table.perm,
+                                   base_coords, offsets, mult)
 
 
-def window_rows(table: CoordTable, base_coords: torch.Tensor,
-                offsets: np.ndarray, in_idx: torch.Tensor):
-    """Window form of the kernel map `in_idx` over a table whose perm is
-    the identity (rows in pack-key order): the (base_pos, slot) of
-    `link_tpu/sparse/coords.py:grouped_window_query`.
+def window_join(table: CoordTable, base_coords: torch.Tensor,
+                offsets: np.ndarray):
+    """The kernel map with its window form, over a table whose perm is the
+    identity (rows in pack-key order): in_idx, base_pos, slot of
+    `link_tpu/sparse/coords.py:grouped_window_query`, in one `sorted_join`
+    call in mode "window" (the join and the padding anchors' pinning).
 
     Taps sharing (dy, dz) form x-runs with the step of the table's x
     lattice (`can_group_offsets`). Keys sort with x fastest, so a group's
     hits occupy the G table rows from the lower bound of its run's
-    smallest x: base_pos is that lower bound (one `sorted_join` launch in
-    mode "lower_bound" for all groups) and a hit's slot is its row minus
-    its group's base.
+    smallest x: base_pos is that lower bound and a hit's slot is its row
+    minus its group's base.
 
-    Returns base_pos (Gg, M) int32, clamped to N - 1, with padding queries
-    pinned to the group's last valid base (link_tpu/sparse/coords.py:
-    1089-1096), and slot (K, M) int8, -1 on a miss."""
-    offs = np.asarray(offsets)
-    m = base_coords.shape[0]
-    dev = base_coords.device
-    glist = offset_groups(offs)
-    g = len(glist)
-
-    anchor = torch.tensor([a for a, _ in glist], dtype=torch.int32,
-                          device=dev)                         # (G, 3)
-    q = torch.cat([base_coords[None, :, :3] + anchor[:, None, :],
-                   base_coords[None, :, 3:].expand(g, -1, -1)], dim=-1)
-    q_hi, q_lo = pack_coords(q.reshape(-1, 4))
-    pos = kernels.sorted_join(table.hi, table.lo, table.perm, q_hi, q_lo,
-                              mode="lower_bound").reshape(g, m)
-    # padding queries sort last and would clamp to n - 1; their slots are
-    # -1, so pin them to the group's last valid base instead
-    valid = q_hi.reshape(g, m) != INT32_MAX
-    last_valid = torch.where(valid, pos, torch.zeros_like(pos)).amax(
-        dim=1, keepdim=True)
-    pos = torch.where(valid, pos, last_valid)
-
-    tap_g = np.zeros(offs.shape[0], np.int64)
-    for gi, (_, taps) in enumerate(glist):
-        for _, t in taps:
-            tap_g[t] = gi
-    base = pos.long()[torch.from_numpy(tap_g).to(dev)]        # (K, M)
-    slot = torch.where(in_idx >= 0, in_idx.long() - base, -1)
-    return pos.contiguous(), slot.to(torch.int8)
+    Returns in_idx (K, M) int32; base_pos (Gg, M) int32, clamped to N - 1,
+    with padding queries pinned to the group's last valid base
+    (link_tpu/sparse/coords.py:1089-1096); slot (K, M) int8, -1 on a
+    miss."""
+    with record_function(JOIN_RANGE):
+        return kernels.sorted_join(table.hi, table.lo, table.perm,
+                                   base_coords, offsets, mode="window")

@@ -89,15 +89,15 @@ def build_spconv_plan(in_coords: torch.Tensor, out_coords: torch.Tensor,
                       table=None) -> ConvPlan:
     """Kernel map: the input for output j through tap t is i = j*s - p + t,
     one join of the base coords j * s over the offsets t - p
-    (link_tpu/sparse/spconv_engine.py:243-315). The plan has no mirror, so
-    it never takes the window form."""
+    (link_tpu/sparse/spconv_engine.py:243-315), the multiplier s applied in
+    the kernel. The plan has no mirror, so it never takes the window
+    form."""
     taps = _tap_offsets(kernel_size)
-    s = torch.tensor(stride, dtype=torch.int32, device=out_coords.device)
     p = np.asarray(padding, np.int32)
     if table is None:
         table = coordlib.build_table(in_coords, assume_sorted=in_sorted)
-    base_coords = torch.cat([out_coords[:, :3] * s, out_coords[:, 3:]], 1)
-    in_idx = coordlib.join_taps(table, base_coords, taps - p[None, :])
+    in_idx = coordlib.join_taps(table, out_coords, taps - p[None, :],
+                                mult=tuple(int(v) for v in stride))
     return ConvPlan(in_idx=in_idx, out_coords=out_coords, out_nnz=out_nnz,
                     in_capacity=in_capacity)
 

@@ -87,32 +87,32 @@ def test_kernel_offsets_match_jax(size, stride, dilation):
         jc.kernel_offsets_np(size, stride, dilation))
 
 
-def _key_table(rng, n):
-    hi = np.sort(rng.choice(1 << 20, n, replace=False)).astype(np.int32)
-    lo = rng.integers(0, 1 << 20, n).astype(np.int32)
-    order = np.lexsort((lo, hi))
-    return hi[order], lo[order], rng.permutation(n).astype(np.int32)
-
-
 def test_join_twin_matches_pallas_join():
+    """The join of base rows + offsets (queries formed by `sorted_join`
+    itself) against a shuffled cloud's table (non-identity perm) equals
+    pallas_join on the JAX-packed queries: hits, absent keys, padding
+    rows (INT32_MAX hi always misses) and rows outside the packable
+    range."""
     rng = np.random.default_rng(70)
-    n, q = 1000, 700
-    hi, lo, perm = _key_table(rng, n)
-    pick = rng.integers(0, n, q // 2)
-    q_hi = np.concatenate([hi[pick], rng.integers(0, 1 << 20, q - q // 2)])
-    q_lo = np.concatenate([lo[pick], rng.integers(0, 1 << 20, q - q // 2)])
-    # padding queries: INT32_MAX hi always misses, even against a real lo
-    q_hi[:9] = 2**31 - 1
-    q_hi, q_lo = q_hi.astype(np.int32), q_lo.astype(np.int32)
-    sel = rng.permutation(q)
-    q_hi, q_lo = q_hi[sel], q_lo[sel]
-
+    c = _cloud(rng, 1000, span=14)
+    n = len(c)
+    jtab = jc.build_table(jnp.asarray(c))
+    base = np.concatenate([c[rng.integers(0, n, 350)],
+                           _cloud(rng, 350, span=20, pad=9, odd=8)])
+    base = base[rng.permutation(len(base))]
+    offs = np.array([[0, 0, 0], [1, -1, 0], [-2, 0, 1]], np.int32)
+    q = np.concatenate([base[None, :, :3] + offs[:, None],
+                        np.broadcast_to(base[None, :, 3:],
+                                        (3, len(base), 1))], -1)
+    q_hi, q_lo = jc.pack_coords(jnp.asarray(q.reshape(-1, 4)))
     want = np.asarray(pk.pallas_join(
-        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(perm),
-        jnp.asarray(q_hi), jnp.asarray(q_lo), block_q=256, interpret=True))
-    got = tk.sorted_join(_t(hi), _t(lo), _t(perm), _t(q_hi), _t(q_lo))
+        jtab.hi, jtab.lo, jtab.perm, q_hi, q_lo, block_q=256,
+        interpret=True)).reshape(3, -1)
+    ttab = tc.build_table(_t(c))
+    got = tk.sorted_join(ttab.hi, ttab.lo, ttab.perm, _t(base), offs)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (want >= 0).sum() > q // 3 and (want < 0).sum() > q // 3
+    assert (want >= 0).sum() > len(base) // 3
+    assert (want < 0).sum() > len(base) // 3
 
 
 @pytest.mark.parametrize("assume_sorted", [False, True])
@@ -136,19 +136,20 @@ def test_table_query_matches_jax(assume_sorted):
 
 def test_wrappers_take_twins_on_cpu_and_refuse_other_devices():
     rng = np.random.default_rng(1)
-    hi, lo, perm = _key_table(rng, 64)
+    c = _cloud(rng, 64)
+    table = tc.build_table(_t(c))
     before = (tk.sorted_join.launches, tk.gather_conv.launches)
-    out = tk.sorted_join(_t(hi), _t(lo), _t(perm), _t(hi), _t(lo))
-    np.testing.assert_array_equal(out.numpy(), perm)
+    out = tk.sorted_join(table.hi, table.lo, table.perm, _t(c))
+    np.testing.assert_array_equal(out.numpy(), np.arange(len(c)))
     feats = torch.ones((5, 4))
     idx = torch.tensor([[0, -1, 4]], dtype=torch.int32)
     y = tk.gather_conv(feats, idx, torch.ones((1, 4, 3)))
     np.testing.assert_array_equal(y.numpy(), [[4] * 3, [0] * 3, [4] * 3])
     assert (tk.sorted_join.launches, tk.gather_conv.launches) == before
     # a tensor that is neither on the CPU nor on a CUDA device raises
-    meta = torch.empty(64, dtype=torch.int32, device="meta")
+    meta = table.hi.to("meta")
     with pytest.raises(ValueError):
-        tk.sorted_join(meta, meta, meta, meta, meta)
+        tk.sorted_join(meta, meta, meta, _t(c).to("meta"))
     with pytest.raises(ValueError):
         tk.gather_conv(feats.to("meta"), idx.to("meta"),
                        torch.ones((1, 4, 3), device="meta"))

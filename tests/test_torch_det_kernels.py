@@ -139,34 +139,42 @@ def test_window_conv_wrapper_takes_twin_on_cpu_and_refuses_other_devices():
 
 
 def test_lower_bound_mode_matches_searchsorted():
-    """mode "lower_bound": the first table row whose key is >= the query,
-    clamped to N - 1, for valid, absent and padding queries alike; JAX's
-    lower_bound gives the same unclamped position."""
+    """mode "lower_bound": for each base row + offset, the first table row
+    whose key is >= the query, clamped to N - 1, for valid, absent and
+    padding queries alike; JAX's lower_bound gives the same unclamped
+    position."""
     rng = np.random.default_rng(12)
     coords, _ = oracles.random_cloud(rng, 900, span=(30, 30, 6), batch=2)
     coords = sort_cloud(coords)[0]
     cp = pad_coords(coords, len(coords) + 25)
-    q = np.concatenate([coords + rng.integers(-1, 2, coords.shape) *
-                        np.array([1, 1, 1, 0]),
-                        pad_coords(coords[:0], 9)]).astype(np.int32)
+    base = pad_coords(coords, len(coords) + 9)
+    offs = np.array([[-1, -1, -1], [0, 1, 0], [1, 0, -1], [0, 0, 0]],
+                    np.int32)
+    q = np.concatenate([base[None, :, :3] + offs[:, None],
+                        np.broadcast_to(base[None, :, 3:],
+                                        (4, len(base), 1))], -1)
     table = tc.build_table(torch.from_numpy(cp), assume_sorted=True)
-    q_hi, q_lo = tc.pack_coords(torch.from_numpy(q))
-    got = tk.sorted_join(table.hi, table.lo, table.perm, q_hi, q_lo,
+    got = tk.sorted_join(table.hi, table.lo, table.perm,
+                         torch.from_numpy(base), offs,
                          mode="lower_bound").numpy()
+    q_hi, q_lo = tc.pack_coords(torch.from_numpy(q.reshape(-1, 4)))
     tkey = tk.key64(table.hi, table.lo).numpy()
     qkey = tk.key64(q_hi, q_lo).numpy()
     want = np.minimum(np.searchsorted(tkey, qkey, side="left"), len(cp) - 1)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, want.reshape(4, -1))
     jpos = np.asarray(jc.lower_bound(jnp.asarray(table.hi.numpy()),
                                      jnp.asarray(table.lo.numpy()),
                                      jnp.asarray(q_hi.numpy()),
                                      jnp.asarray(q_lo.numpy())))
-    np.testing.assert_array_equal(got, np.minimum(jpos, len(cp) - 1))
-    exact = tk.sorted_join(table.hi, table.lo, table.perm, q_hi, q_lo)
-    hit = exact.numpy() >= 0
-    np.testing.assert_array_equal(got[hit], exact.numpy()[hit])
+    np.testing.assert_array_equal(got,
+                                  np.minimum(jpos, len(cp) - 1).reshape(4, -1))
+    exact = tk.sorted_join(table.hi, table.lo, table.perm,
+                           torch.from_numpy(base), offs).numpy()
+    hit = exact >= 0
+    np.testing.assert_array_equal(got[hit], exact[hit])
     with pytest.raises(ValueError, match="mode"):
-        tk.sorted_join(table.hi, table.lo, table.perm, q_hi, q_lo, mode="x")
+        tk.sorted_join(table.hi, table.lo, table.perm,
+                       torch.from_numpy(base), offs, mode="x")
 
 
 def _det_level(seed, cap, span=(24, 24, 10)):
@@ -180,7 +188,7 @@ def _det_level(seed, cap, span=(24, 24, 10)):
 
 @pytest.mark.parametrize("kind", ["subm_self_query", "strided"])
 def test_grouped_window_query_matches_jax(kind):
-    """The port's exact join (join_taps) and its window rows (window_rows)
+    """The port's exact join (join_taps) and its window join (window_join)
     give the in_idx, base_pos and slot of the JAX exact-search form
     exactly, and every hit sits at base_pos[g(t)] + slot[t]."""
     cp, n = _det_level(7, 1024)
@@ -203,9 +211,10 @@ def test_grouped_window_query_matches_jax(kind):
         identity_perm=True, **kw)
     ttab = tc.build_table(torch.from_numpy(cp), assume_sorted=True)
     t_idx = tc.join_taps(ttab, torch.from_numpy(base), offsets)
-    t_base, t_slot = tc.window_rows(ttab, torch.from_numpy(base), offsets,
-                                    t_idx)
+    w_idx, t_base, t_slot = tc.window_join(ttab, torch.from_numpy(base),
+                                           offsets)
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(w_idx.numpy(), np.asarray(j_idx))
     np.testing.assert_array_equal(t_base.numpy(), np.asarray(j_base))
     np.testing.assert_array_equal(t_slot.numpy(), np.asarray(j_slot))
     assert t_slot.dtype == torch.int8 and t_base.dtype == torch.int32
@@ -285,9 +294,9 @@ def _spy_joins(monkeypatch):
     modes = []
     orig = tk.sorted_join
 
-    def spy(*a, mode="exact"):
+    def spy(*a, mode="exact", **kw):
         modes.append(mode)
-        return orig(*a, mode=mode)
+        return orig(*a, mode=mode, **kw)
 
     monkeypatch.setattr(tk, "sorted_join", spy)
     return modes
@@ -297,8 +306,9 @@ def test_window_form_only_for_callers_that_prefer_it(monkeypatch):
     """A submanifold conv that does not prefer the window form (seg, ELK
     local_mix) builds its plan with one exact join and no window arrays;
     a later conv on the same plan that prefers it adds them with one
-    lower-bound join, equal to the JAX plan's; a dilated conv never gets
-    them."""
+    window join, equal to the JAX plan's; a conv that prefers it from the
+    start builds the plan and its window arrays in one window join; a
+    dilated conv never gets them."""
     cp, n = _det_level(9, 700, span=(16, 16, 8))
     rng = np.random.default_rng(2)
     f = rng.standard_normal((700, 8)).astype(np.float32)
@@ -309,7 +319,7 @@ def test_window_form_only_for_callers_that_prefer_it(monkeypatch):
     key = ("plan", (1, 1, 1), (3, 3, 3), (1, 1, 1), (1, 1, 1))
     assert modes == ["exact"] and ts.kmaps[key].base_pos is None
     win = tconv.conv3d(ts, torch.from_numpy(w), 3, prefer_window=True)
-    assert modes == ["exact", "lower_bound"]
+    assert modes == ["exact", "window"]
     tconv.conv3d(ts, torch.from_numpy(w), 3, prefer_window=True)
     assert len(modes) == 2
     tp = ts.kmaps[key]
@@ -326,6 +336,13 @@ def test_window_form_only_for_callers_that_prefer_it(monkeypatch):
     tconv.conv3d(ts, torch.from_numpy(w), 3, dilation=2, prefer_window=True)
     assert modes[2:] == ["exact"]
     assert ts.kmaps[key[:4] + ((2, 2, 2),)].base_pos is None
+    first = t_make(f, cp, nnz=n, base_sorted=True, device="cpu")
+    del modes[:]
+    tconv.conv3d(first, torch.from_numpy(w), 3, prefer_window=True)
+    assert modes == ["window"]
+    for name in ("in_idx", "base_pos", "slot"):
+        assert torch.equal(getattr(first.kmaps[key], name),
+                           getattr(tp, name))
 
 
 SPCONV_CASES = {"down_k3s2p1": ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
