@@ -50,6 +50,21 @@ Phases, in order (any failure raises and the script exits non-zero):
                  seg, det and train profiles also read the join sites'
                  range (`coords.JOIN_RANGE`: host ms, device ms, launches)
                  and fail unless it holds only `sorted_join`'s launches;
+  9b. det_nms_kernels `rotated_nms` against its twin on the det frames'
+                 real candidates (6 tasks, the top 1,000 each) and on
+                 synthetic sets (N = 1, 63, 64, 65, 1,000; identical,
+                 zero-width and invalid rows, tied scores; thresholds 0.01,
+                 0.2, 0.5; max_keep 83 and N): the kernel's IoU within
+                 1e-6 of `native.bev_iou`, keep masks equal, a pair
+                 decided differently only within 1e-5 of the threshold
+                 (counted and printed); timed beside its twin and bound;
+  9c. det_serve  under PyTorch's own TF32 flags, as a user's process has
+                 them: `predict` per frame with host native NMS and with
+                 device NMS, split into voxelize, forward + decode (+
+                 device NMS), copies, host NMS and floors; the launches of one
+                 device-NMS pass (6 `rotated_nms` calls per frame); both
+                 modes' kept boxes from the same decode outputs; and
+                 `stream_inference --synthetic 3 --device-nms`;
  10. train_kernels the weight-gradient work list built on the card against
                  its plain twin; `gather_wgrad` against its twin, and the
                  conv's whole
@@ -95,7 +110,7 @@ around whole calls, the rates by the host clock around synchronized work.
 
 Output: `#`-prefixed progress lines, then a line with the card's name and
 power limit (nvidia-smi), then one JSON line {"kernels": [...]} with each
-kernel's launches on the main path, error against its twin, times and bound,
+kernel's launches on the main paths, error against its twin, times and bound,
 and last {"ok": true, "device": {...}}. Details also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or when
 the `link_tpu_torch` package is not beside this file.
@@ -103,6 +118,8 @@ the `link_tpu_torch` package is not beside this file.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -158,6 +175,7 @@ def rel_err(got, want) -> float:
 
 
 CAPTURE_FAILED = []    # "label: error" of each call not timed by a graph
+USER_TF32 = {}         # PyTorch's own TF32 flags, before main() clears them
 
 
 def cuda_ms(fn, iters: int, label: str = "") -> float:
@@ -534,7 +552,8 @@ def phase_main(res, ctx, n_scans=4, rounds=3):
 # name stems of the kernels in link_tpu_torch/csrc (`<stem>_kernel`)
 HAND_KERNELS = ("sorted_join", "join_pin", "gather_conv", "w_frag", "window_conv",
                 "gather_wgrad", "wgrad_reduce", "list_count", "list_scan",
-                "list_write", "row_gather", "slab_copy", "empty")
+                "list_write", "row_gather", "slab_copy", "empty", "nms_mask",
+                "nms_sweep")
 
 
 def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
@@ -924,7 +943,8 @@ def phase_det_main(res, ctx, n_frames=2, rounds=3):
                              f"expected {plans} joins and {convs} convs per "
                              "frame, or a kernel was not launched")
     res["det_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
-    ctx.update(pred=pred, det_batches=batches)
+    ctx.update(pred=pred, det_batches=batches,
+               det_points=[p for p, _ in frames])
 
 
 def phase_det_profile(res, ctx):
@@ -935,6 +955,302 @@ def phase_det_profile(res, ctx):
         1e3 / max(res["det_frames_per_s"]), "frame", ranges=(JOIN_RANGE,))
     _check_join_sites(res["det_profile"], "frame",
                       res["det_launches"]["sorted_join"] / len(batches))
+
+
+# --------------------------------------------------------------------------
+# detection serving: NMS on the device, and the host side
+
+NEAR_THRESH = 1e-5    # a pair whose IoU lies this close to the threshold may
+#                       be decided either way by two IoU routines of other
+#                       precisions (the kernel's clip in float64, the twin's
+#                       24-candidate hull in float32 about the pair's first
+#                       centre; on the H100 the two agree within 5e-7 over
+#                       every case of det_nms_kernels)
+NATIVE_IOU_TOL = 1e-6  # the kernel's IoU against the native library's clip
+#                       (the same float64 algorithm, returned in float32)
+NMS_PAIR_OPS = 10     # operations of one circumscribed-circle test
+NMS_CLIP_OPS = 150    # operations of one clip of two quads and its area
+#                       (4 clip edges over 4-8 vertices, the crossings, the
+#                       shoelace): a lower count than the kernel's
+
+
+def _nms_inputs(n: int, seed: int, dev):
+    """A synthetic candidate set: boxes packed so that many overlap, every
+    7th a copy of its neighbour, every 11th of zero width; bf16-quantized
+    scores (heavy ties); a fifth of the rows and rows 10-19 invalid."""
+    import torch
+    rng = np.random.default_rng(seed)
+    b = np.zeros((n, 5), np.float32)
+    spread = 0.8 * math.sqrt(n) + 1
+    b[:, :2] = rng.uniform(-spread, spread, (n, 2))
+    b[:, 2:4] = rng.uniform(0.5, 3.0, (n, 2))
+    b[:, 4] = rng.uniform(-math.pi, math.pi, n)
+    b[1::7] = b[0::7][:len(b[1::7])]
+    b[2::11, 2] = 0
+    logits = torch.tensor(rng.integers(-6, 6, n) / 4.0,
+                          dtype=torch.bfloat16).float()
+    valid = rng.random(n) > 0.2
+    valid[10:20] = False
+    return (torch.from_numpy(b).to(dev), torch.sigmoid(logits).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def _nms_case(kernels, nms, native, boxes, scores, valid, thresh, max_keep,
+              role, timed=False, iters=20):
+    """rotated_nms against its twin on one candidate set. The kernel's IoU
+    (`rotated_nms_iou`, its IoU device function) must lie within
+    NATIVE_IOU_TOL of the native library's `bev_iou` on every valid pair;
+    the kernel's keep must equal the twin's walk over the kernel's own
+    overlaps, and each pair the kernel and the twin decide differently must
+    lie within NEAR_THRESH of the threshold; then the keep masks are equal
+    unless such a pair exists.
+    Timed: kernel and twin by graph replay, and the bound from this run's
+    data (bytes of boxes, scores, valid and keep; NMS_PAIR_OPS per valid
+    pair and NMS_CLIP_OPS per valid pair whose circumscribed circles meet,
+    each unordered pair once, at the float32 CUDA-core rate)."""
+    import torch
+    n = scores.shape[0]
+    keep = kernels.rotated_nms(boxes, scores, valid, thresh, max_keep)
+    twin = nms.rotate_nms_device(boxes, scores, valid, thresh, max_keep)
+    iou_k = kernels.rotated_nms_iou(boxes)
+    iou_t = nms.rotated_iou_bev(boxes).double()
+    b7 = torch.zeros((n, 7))
+    b7[:, [0, 1, 3, 4, 6]] = boxes.cpu()
+    b7[:, 5] = 1.0
+    iou_n = torch.from_numpy(native.bev_iou(b7.numpy(), b7.numpy())).to(
+        boxes.device, torch.float64)
+    th = float(np.float32(thresh))          # the kernel compares in float64
+    both = (valid[:, None] & valid[None, :]
+            & ~torch.eye(n, dtype=torch.bool, device=boxes.device))
+    native_diff = float((iou_k - iou_n)[both].abs().max()) \
+        if bool(both.any()) else 0.0
+    over_k = iou_k > th
+    walk = nms.nms_keep(over_k, scores, valid, max_keep)
+    near = both & ((iou_t - th).abs() < NEAR_THRESH)
+    flips = both & (over_k != (iou_t > th))
+    torch.cuda.synchronize()
+    shape = f"N={n} thresh={thresh} max_keep={max_keep}"
+    case = {
+        "role": role, "shape": shape, "kept": int(keep.sum()),
+        "kept_twin": int(twin.sum()),
+        "keep_diff": int((keep != twin).sum()),
+        "max_abs_err": float((keep != twin).any()),
+        "near_pairs": int(near.sum()) // 2, "over_flips": int(flips.sum()),
+        "max_iou_diff": float((iou_k - iou_t)[both].abs().max())
+        if bool(both.any()) else 0.0,
+        "max_native_iou_diff": native_diff,
+    }
+    if native_diff > NATIVE_IOU_TOL:
+        raise AssertionError(f"rotated_nms {role} {shape}: the kernel's IoU "
+                             f"is {native_diff:.3g} from native.bev_iou")
+    if not torch.equal(keep, walk):
+        raise AssertionError(f"rotated_nms {role} {shape}: the keep differs "
+                             "from the walk over the kernel's overlaps")
+    if bool((flips & ~near).any()):
+        raise AssertionError(f"rotated_nms {role} {shape}: "
+                             f"{int((flips & ~near).sum())} pairs decided "
+                             "differently from the twin, away from the "
+                             "threshold")
+    if case["keep_diff"] and not case["over_flips"]:
+        raise AssertionError(f"rotated_nms {role} {shape}: keep differs "
+                             "from the twin")
+    if timed:
+        ctr = boxes[:, :2].double()
+        rad = 0.5 * torch.hypot(boxes[:, 2].double(), boxes[:, 3].double())
+        meet = torch.cdist(ctr, ctr) <= rad[:, None] + rad[None, :]
+        pairs = int(both.sum()) // 2
+        clips = int((both & meet).sum()) // 2
+        nbytes = n * (5 * 4 + 4 + 1 + 1)
+        ops = NMS_PAIR_OPS * pairs + NMS_CLIP_OPS * clips
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["float32"] * 1e3
+        case.update(
+            ms=cuda_ms(lambda: kernels.rotated_nms(boxes, scores, valid,
+                                                   thresh, max_keep), iters,
+                       f"rotated_nms {shape}"),
+            plain_ms=cuda_ms(lambda: nms.rotate_nms_device(
+                boxes, scores, valid, thresh, max_keep), 2,
+                f"rotate_nms_device {shape}"),
+            # the pair work alone: the IoU instrument runs the mask
+            # kernel's pair loop (and writes 8 B per pair)
+            pair_ms=cuda_ms(lambda: kernels.rotated_nms_iou(boxes), iters,
+                            f"rotated_nms_iou {shape}"),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, valid_pairs=pairs, clipped_pairs=clips)
+        log(f"rotated_nms {role} {shape}: kernel {case['ms']:.4f} ms (its "
+            f"pair work alone {case['pair_ms']:.4f}), twin "
+            f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.6f} ms "
+            f"({case['bound_by']}: {pairs} valid pairs, {clips} clipped); "
+            "library: none")
+    return case
+
+
+def phase_det_nms_kernels(res, ctx):
+    """`rotated_nms` against its twin on the card: the real candidates of
+    the det frames (6 tasks per frame, the top 1,000 by masked score, the
+    config's threshold 0.2 and cap 83), then synthetic sets of N = 1, 63,
+    64, 65 and 1,000 (identical, zero-width and invalid rows, tied scores)
+    at thresholds 0.01, 0.2 and 0.5 with max_keep 83 and N, and an
+    all-invalid set."""
+    import torch
+    from link_tpu_torch import native
+    from link_tpu_torch.models.center_head import nms_candidates
+    from link_tpu_torch.ops import kernels, nms
+
+    pred = ctx["pred"]
+    th, post = pred.cfg["nms_iou_threshold"], pred.cfg["nms_post_max_size"]
+    cases = []
+    for f, batch in enumerate(ctx["det_batches"]):
+        cands = nms_candidates(pred.forward(batch), pred.cfg)
+        for t, (bx, sc, _, vm) in enumerate(cands):
+            cases.append(_nms_case(
+                kernels, nms, native, bx[0][:, [0, 1, 3, 4, 8]],
+                sc[0].contiguous(), vm[0].contiguous(), th, post,
+                f"frame {f} task {t}", timed=(f == 0 and t == 0)))
+    res["rotated_nms_case"] = cases[0]
+    dev = torch.device("cuda")
+    for n in (1, 63, 64, 65, 1000):
+        boxes, scores, valid = _nms_inputs(n, n, dev)
+        for thresh in (0.01, 0.2, 0.5):
+            for max_keep in (83, n):
+                cases.append(_nms_case(kernels, nms, native, boxes, scores,
+                                       valid, thresh, max_keep, "synthetic"))
+    boxes, scores, _ = _nms_inputs(65, 7, dev)
+    cases.append(_nms_case(kernels, nms, native, boxes, scores,
+                           torch.zeros(65, dtype=torch.bool, device=dev),
+                           0.2, 83, "all invalid"))
+    res["rotated_nms_cases"] = cases
+    real = [c for c in cases if c["role"].startswith("frame")]
+    log(f"rotated_nms: {len(cases)} cases, keep masks equal to the twin's in "
+        f"{sum(not c['keep_diff'] for c in cases)}; pairs within "
+        f"{NEAR_THRESH} of the threshold: "
+        f"{sum(c['near_pairs'] for c in cases)}, decided differently: "
+        f"{sum(c['over_flips'] for c in cases) // 2}; largest IoU difference "
+        f"{max(c['max_iou_diff'] for c in cases):.3g} from the twin, "
+        f"{max(c['max_native_iou_diff'] for c in cases):.3g} from "
+        f"native.bev_iou; real candidates kept "
+        f"{[c['kept'] for c in real]}")
+
+
+@contextlib.contextmanager
+def user_tf32():
+    """PyTorch's own TF32 flags, as a user's process has them (cuDNN's
+    float32 convolutions on TF32), in place of the TF32-free float32 that
+    main() sets for the parity gates."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = USER_TF32["matmul"]
+    torch.backends.cudnn.allow_tf32 = USER_TF32["cudnn"]
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def phase_det_serve(res, ctx, rounds=2):
+    """The det serving path end to end at full width, under a user's TF32
+    flags (`user_tf32`): `predict` per frame with host native NMS and with
+    device NMS (the `rotated_nms` kernel), each split into voxelize,
+    forward + decode (+ device NMS), copies to the host, host NMS and
+    floors; the launch counts of one device-NMS pass over the frames; both
+    modes' kept boxes from the same decode outputs; and `stream_inference
+    --synthetic 3 --device-nms` on the card."""
+    with user_tf32():
+        _det_serve(res, ctx, rounds)
+
+
+def _det_serve(res, ctx, rounds):
+    import torch
+    from link_tpu_torch.models.center_head import device_nms, nms_candidates
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import stream_inference
+    from link_tpu_torch.tools.serve_split import split_frame
+
+    host = ctx["pred"]
+    dev = copy.copy(host)               # the same model, with device NMS
+    dev.device_nms = True
+    frames = ctx["det_points"]
+    dev.predict(frames[0])                                    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for points in frames:
+        dev.predict(points)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    res["det_serve_launches"] = launches
+    tasks = len(host.num_classes)
+    want = len(frames) * tasks * kernels.ROTATED_NMS_LAUNCHES
+    log(f"det serve, device NMS, {len(frames)} frames: launches per frame "
+        f"{ {k: v / len(frames) for k, v in launches.items() if v} }")
+    if launches["rotated_nms"] != want or min(
+            launches[k] for k in ("sorted_join", "window_conv",
+                                  "gather_conv")) == 0:
+        raise AssertionError(f"det serve launches {launches}: expected "
+                             f"rotated_nms {want} and every det kernel")
+
+    split = {"host": [], "device": []}
+    for _ in range(rounds):
+        for mode, pred in (("host", host), ("device", dev)):
+            for points in frames:
+                det, sp = split_frame(pred, points)
+                split[mode].append(sp)
+                if not (np.isfinite(det["box3d_lidar"]).all()
+                        and np.isfinite(det["scores"]).all()):
+                    raise AssertionError(f"{mode}: non-finite detections")
+    res["det_serve_split"] = split
+    for mode in split:
+        med = {k: float(np.median([sp[k] for sp in split[mode]]))
+               for k in split[mode][0]}
+        res.setdefault("det_serve_median", {})[mode] = med
+        log(f"det serve, {mode} NMS, median ms per frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+            + f" (predict, all: "
+            f"{[round(sp['predict_ms'], 2) for sp in split[mode]]})")
+
+    th = host.cfg["nms_iou_threshold"]
+    compare = []
+    for f, batch in enumerate(ctx["det_batches"]):
+        outs = host.forward(batch)
+        got_h = host.postprocess(outs)
+        got_d = dev.postprocess(device_nms(outs, dev.cfg))
+        same = all(np.array_equal(got_h[k], got_d[k]) for k in got_h)
+        near = 0
+        for bx, sc, _, vm in nms_candidates(outs, host.cfg):
+            iou = kernels.rotated_nms_iou(bx[0][:, [0, 1, 3, 4, 8]])
+            v = vm[0]
+            both = (v[:, None] & v[None, :]
+                    & ~torch.eye(len(v), dtype=torch.bool, device=v.device))
+            near += int((both & ((iou - th).abs() < NEAR_THRESH)).sum()) // 2
+        compare.append({"frame": f, "kept_host": len(got_h["scores"]),
+                        "kept_device": len(got_d["scores"]), "equal": same,
+                        "near_pairs": near})
+        if not same and near == 0:
+            raise AssertionError(f"frame {f}: host and device NMS keep "
+                                 "different boxes, and no pair lies near "
+                                 "the threshold")
+    res["det_serve_compare"] = compare
+    log(f"det serve, host vs device NMS on the same decode outputs: "
+        f"{compare}")
+
+    out = os.path.join(HERE, "chiprun_out", "stream_inference.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.perf_counter()
+    stream_inference.main(["--synthetic", "3", "--device-nms", "--out", out])
+    with open(out) as fh:
+        recs = [json.loads(line) for line in fh]
+    res["stream_inference"] = {
+        "s": time.perf_counter() - t0, "records": len(recs),
+        "latency_ms": [r["latency_ms"] for r in recs],
+        "boxes": [len(r["boxes"]) for r in recs]}
+    log(f"stream_inference --synthetic 3 --device-nms: "
+        f"{res['stream_inference']}")
+    if (len(recs) != 3 or any(len(r["boxes"]) != len(r["scores"])
+                              or not np.isfinite(r["scores"]).all()
+                              for r in recs)):
+        raise AssertionError(f"stream_inference records: {recs[:1]}")
 
 
 # --------------------------------------------------------------------------
@@ -1490,8 +1806,11 @@ KERNEL_CASE = {
     "probe_slab_copy": lambda res: _probe_case(
         res, "probe_slab_copy", letter="D", g=512),
     "probe_empty": lambda res: _probe_case(res, "probe_empty"),
+    # frame 0's first task: the top 1,000 candidates, thresh 0.2, cap 83
+    "rotated_nms": lambda res: res["rotated_nms_case"],
 }
 MAIN_PATHS = {"seg": "launches", "det": "det_launches",
+              "det_serve": "det_serve_launches",
               "train": "train_launches", "probes": "probe_launches"}
 
 
@@ -1499,7 +1818,8 @@ def kernels_line(res):
     """One entry per kernel of `kernels.KERNELS` (name, source and what it
     replaces come from that registry): launches summed over the main paths'
     counted runs (one seg pass of 4 scans, one det pass of 2 frames, one
-    train step, one run of the probe tool), and the error, times and bound
+    device-NMS `predict` of the 2 frames, one train step, one run of the
+    probe tool), and the error, times and bound
     of `KERNEL_CASE`. A kernel without a case or without a launch on any
     main path fails the script."""
     from link_tpu_torch.ops import kernels
@@ -1533,6 +1853,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     # f32 parity runs in full float32 (no TF32 in matmuls or convolutions)
+    USER_TF32.update(matmul=torch.backends.cuda.matmul.allow_tf32,
+                     cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1546,6 +1868,7 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_golden, phase_main,
                   phase_profile, phase_det_kernels, phase_det_golden,
                   phase_det_elk_golden, phase_det_main, phase_det_profile,
+                  phase_det_nms_kernels, phase_det_serve,
                   phase_train_kernels, phase_train_grad, phase_train_golden,
                   phase_train_main, phase_train_profile, phase_path_shapes,
                   phase_probes):

@@ -1,8 +1,9 @@
-"""Detection input pipeline (host-side NumPy), inference part.
+"""Detection input pipeline (host side), inference part.
 
-A copy of `link_tpu/data/det_pipeline.py`'s hard voxelizer (NumPy path)
-and `collate_det` with its inference fields, plus the move of a collated
-batch onto the device. Reference semantics (point_cloud_ops.py:8-57):
+A copy of `link_tpu/data/det_pipeline.py`'s hard voxelizer (the native
+kernel of `link_tpu_torch/native`, and its NumPy twin) and `collate_det`
+with its inference fields, plus the move of a collated batch onto the
+device. Reference semantics (point_cloud_ops.py:8-57):
 voxels ordered by first appearance decide the truncation (the first
 `max_points` points of a voxel, the first `max_voxels` voxels); the emitted
 rows are then sorted into pack-key (b, z, y, x) order, the device-side
@@ -16,6 +17,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import native
 from ..sparse.coords import INVALID_COORD
 
 NUSC_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer",
@@ -24,12 +26,19 @@ NUSC_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer",
 
 
 def points_to_voxel(points: np.ndarray, voxel_size, pc_range,
-                    max_points: int = 10, max_voxels: int = 120000):
+                    max_points: int = 10, max_voxels: int = 120000,
+                    impl: str = "native"):
     """Hard voxelization. Returns (voxels (V, max_points, F), coords (V, 3)
-    in (z, y, x) order like the reference, num_points_per_voxel (V,))."""
+    in (z, y, x) order like the reference, num_points_per_voxel (V,)).
+    impl "native" runs the C++ kernel, "numpy" the NumPy twin; both give the
+    same arrays."""
+    native.check_impl(impl)
     voxel_size = np.asarray(voxel_size, np.float32)
     pc_range = np.asarray(pc_range, np.float32)
     grid = np.round((pc_range[3:6] - pc_range[:3]) / voxel_size).astype(np.int32)
+    if impl == "native":
+        return native.voxelize_points(points, voxel_size, pc_range, grid,
+                                      max_points, max_voxels)
 
     c = np.floor((points[:, :3] - pc_range[:3]) / voxel_size).astype(np.int32)
     keep = ((c >= 0) & (c < grid)).all(axis=1)

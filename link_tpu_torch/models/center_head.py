@@ -2,10 +2,11 @@
 
 PyTorch counterpart of `link_tpu/models/center_head.py` (reference
 detection/det3d/models/bbox_heads/center_head.py:67-446), inference path
-with `dcn_head=False` (every published LinK config). Six task groups over
-the nuScenes classes; per task a SepHead with branches reg(2) / height(1) /
-dim(3) / rot(2) / vel(2) / hm(C), each Conv3x3 + BN + ReLU -> Conv3x3 (hm's
-final bias -2.19). Module layout and `state_dict` keys follow the
+with `dcn_head=False` (every published LinK config), and the rotated NMS on
+the device (`device_nms`, through the `rotated_nms` kernel). Six task
+groups over the nuScenes classes; per task a SepHead with branches reg(2) /
+height(1) / dim(3) / rot(2) / vel(2) / hm(C), each Conv3x3 + BN + ReLU ->
+Conv3x3 (hm's final bias -2.19). Module layout and `state_dict` keys follow the
 reference (`shared_conv.0.weight`, `tasks.0.reg.3.bias`, ...). As in the
 JAX package the head returns per-task dicts of NHWC maps, and the decode
 runs in float32 whatever the compute dtype.
@@ -18,6 +19,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.kernels import rotated_nms
 from .rpn import _DTYPES, run_dense
 
 HEAD_NORM = dict(eps=1e-5, momentum=0.1)
@@ -136,4 +138,46 @@ def decode_boxes(preds: List[Dict[str, torch.Tensor]], test_cfg: Dict,
         out.append((boxes, scores, (labels + class_offset).to(torch.int32),
                     mask))
         class_offset += num_classes[t]
+    return out
+
+
+def nms_candidates(task_outs, test_cfg: Dict):
+    """Per task of `decode_boxes` outputs, the top k = min(nms_pre_max_size,
+    H*W) candidates by masked score, by a stable sort (ties by the lower
+    index, as jax.lax.top_k): (boxes (B, k, 9), scores (B, k) with -inf
+    where invalid, labels (B, k), valid (B, k))."""
+    pre = int(test_cfg.get("nms_pre_max_size", 1000))
+    out = []
+    for boxes, scores, labels, mask in task_outs:
+        b, n, c = boxes.shape
+        k = min(pre, n)
+        sc = torch.where(mask, scores, torch.full_like(scores, -float("inf")))
+        top_sc, top_idx = torch.sort(sc, dim=1, descending=True, stable=True)
+        top_sc, top_idx = top_sc[:, :k], top_idx[:, :k]
+        out.append((torch.gather(boxes, 1, top_idx[..., None].expand(b, k, c)),
+                    top_sc, torch.gather(labels, 1, top_idx),
+                    torch.gather(mask, 1, top_idx)))
+    return out
+
+
+def device_nms(task_outs, test_cfg: Dict):
+    """Rotated NMS on the device over `decode_boxes` outputs
+    (link_tpu/models/center_head.py:276-311): per task the `nms_candidates`,
+    then per batch row the `rotated_nms` kernel on their BEV columns
+    [x y w l r], the keep capped at nms_post_max_size. Returns per task
+    (boxes (B, k, 9), scores (B, k) zeroed where invalid, labels, keep
+    mask): the tuple contract of `decode_boxes`, with the mask now the
+    post-NMS keep. Nothing leaves the device."""
+    post = int(test_cfg.get("nms_post_max_size", 83))
+    th = float(test_cfg.get("nms_iou_threshold", 0.2))
+    out = []
+    for bx, sc, lb, vm in nms_candidates(task_outs, test_cfg):
+        # [x y w l r] by slices: a list index would copy itself from the
+        # host, and the copy waits for the stream
+        bev = torch.cat([bx[..., 0:2], bx[..., 3:5], bx[..., 8:9]], -1)
+        keeps = [rotated_nms(bev[i], sc[i].contiguous(), vm[i].contiguous(),
+                             th, post)
+                 for i in range(bx.shape[0])]
+        out.append((bx, torch.where(vm, sc, torch.zeros_like(sc)), lb,
+                    torch.stack(keeps)))
     return out

@@ -1,6 +1,6 @@
-"""Hand-written Hopper kernels of the sparse path, with their plain twins.
+"""Hand-written Hopper kernels of the port, with their plain twins.
 
-Seven kernels. Three are ports of the Pallas kernels of
+Eight kernels. Three are ports of the Pallas kernels of
 `link_tpu/ops/pallas_kernels.py`:
 
   * `sorted_join` (csrc/sorted_join.cu) replaces `pallas_join` (:62-89)
@@ -17,12 +17,15 @@ Seven kernels. Three are ports of the Pallas kernels of
     (:179-276): the same sum with input rows addressed as base_pos[g, m] +
     slot[t, m] for tap t of group g.
 
-One has no Pallas counterpart:
+Two have no Pallas counterpart:
 
   * `gather_wgrad` (csrc/gather_wgrad.cu) replaces the XLA product of
     `_gm_bwd_core` (link_tpu/sparse/conv.py:608-622): the weight gradient
     dW[k] = sum_i feats[i]^T (x) g[bwd_idx[k, i]], without the gathered
     copy of g.
+  * `rotated_nms` (csrc/rotated_nms.cu) replaces `rotate_nms_jax`
+    (link_tpu/ops/nms.py:171): the keep mask of rotated BEV NMS over a
+    fixed-size candidate set, on the det serving path with device NMS.
 
 Three replace the Mosaic probes of tools/probe_mosaic.py and
 tools/probe_mosaic2.py (csrc/probes.cu): `probe_row_gather`,
@@ -66,7 +69,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sorted_join.cu", "gather_conv.cu", "window_conv.cu",
-           "gather_wgrad.cu", "probes.cu")
+           "gather_wgrad.cu", "probes.cu", "rotated_nms.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -874,6 +877,78 @@ def probe_empty(x: torch.Tensor) -> torch.Tensor:
 
 
 _kernel(probe_empty, "probes.cu", "tools/probe_mosaic2.py:97", [_P, _P, _P])
+
+
+# --------------------------------------------------------------------------
+# rotated_nms
+
+NMS_MAX_N = 8192            # candidates one call takes (csrc/rotated_nms.cu)
+NMS_TILE = 64               # boxes per mask tile side: one 64-bit word
+ROTATED_NMS_LAUNCHES = 2    # kernels of one call: the pair mask, the walk
+
+
+def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                valid: torch.Tensor, thresh: float,
+                max_keep: int) -> torch.Tensor:
+    """Rotated BEV NMS over a fixed-size candidate set: boxes (N, 5) float32
+    [x y w l r], scores (N,) float32, valid (N,) bool. Returns the keep mask
+    (N,) bool in input order: at most max_keep kept, with priority by
+    descending score (ties by the lower index); a pair overlaps when its
+    BEV IoU exceeds thresh. The plain twin is `nms.rotate_nms_device`. Two
+    launches; no sort, copy or synchronization outside them."""
+    if _on_cpu(boxes, scores, valid):
+        from .nms import rotate_nms_device
+        return rotate_nms_device(boxes, scores, valid, thresh, max_keep)
+    _check_cuda("rotated_nms", boxes, scores, valid)
+    n = scores.shape[0]
+    if (boxes.dtype != torch.float32 or scores.dtype != torch.float32
+            or valid.dtype != torch.bool or boxes.shape != (n, 5)
+            or scores.dim() != 1 or valid.shape != (n,)):
+        raise ValueError("rotated_nms: boxes (N, 5) float32, scores (N,) "
+                         "float32, valid (N,) bool")
+    if n > NMS_MAX_N:
+        raise ValueError(f"rotated_nms: {n} candidates > {NMS_MAX_N}")
+    keep = torch.empty((n,), dtype=torch.bool, device=boxes.device)
+    if n == 0:
+        return keep
+    words = -(-n // NMS_TILE)
+    mask = torch.empty((n * words,), dtype=torch.int64, device=boxes.device)
+    partial = torch.empty((words * n,), dtype=torch.int32,
+                          device=boxes.device)
+    rc = _entry(rotated_nms)(
+        boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), n,
+        float(thresh), max(0, min(int(max_keep), n)), mask.data_ptr(),
+        partial.data_ptr(), keep.data_ptr(), _stream(boxes))
+    _raise_on("rotated_nms", rc)
+    rotated_nms.launches += ROTATED_NMS_LAUNCHES
+    return keep
+
+
+_kernel(rotated_nms, "rotated_nms.cu",
+        "link_tpu/ops/nms.py:171 (no Pallas counterpart: rotate_nms_jax "
+        "runs in XLA)",
+        [_P, _P, _P, _I, ctypes.c_float, _I, _P, _P, _P, _P])
+
+
+def rotated_nms_iou(boxes: torch.Tensor) -> torch.Tensor:
+    """The BEV IoU matrix (N, N) float64 of (N, 5) float32 boxes on the
+    card, from the device function `rotated_nms` thresholds (row i clipped
+    by column j). An instrument for holding the kernel's IoU against
+    `nms.rotated_iou_bev`; no path calls it, and it counts no launch."""
+    _check_cuda("rotated_nms_iou", boxes)
+    n = boxes.shape[0]
+    if boxes.dtype != torch.float32 or boxes.shape != (n, 5) \
+            or not 0 < n <= NMS_MAX_N:
+        raise ValueError("rotated_nms_iou: boxes (N, 5) float32, "
+                         f"0 < N <= {NMS_MAX_N}")
+    out = torch.empty((n, n), dtype=torch.float64, device=boxes.device)
+    fn = _lib("rotated_nms.cu").rotated_nms_iou
+    fn.argtypes = [_P, _I, _P, _P]
+    fn.restype = ctypes.c_int
+    _raise_on("rotated_nms_iou",
+              fn(boxes.data_ptr(), n, out.data_ptr(), _stream(boxes)))
+    return out
+
 
 KERNELS = tuple(KERNELS)
 

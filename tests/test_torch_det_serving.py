@@ -164,7 +164,8 @@ def test_det_modules_import_neither_jax_nor_link_tpu():
             "link_tpu_torch.models.center_head",
             "link_tpu_torch.sparse.spconv_engine",
             "link_tpu_torch.data.det_pipeline", "link_tpu_torch.data.nuscenes",
-            "link_tpu_torch.ops.nms", "link_tpu_torch.ops.box_np"]
+            "link_tpu_torch.ops.nms", "link_tpu_torch.ops.box_np",
+            "link_tpu_torch.native", "link_tpu_torch.tools.stream_inference"]
     code = ("import importlib, sys\n"
             "for m in sys.argv[1:]:\n"
             "    importlib.import_module(m)\n"

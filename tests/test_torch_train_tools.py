@@ -234,7 +234,7 @@ def test_kernel_registry_names_every_source():
     names = [fn.__name__ for fn in kernels.KERNELS]
     assert names == ["sorted_join", "gather_conv", "window_conv",
                      "gather_wgrad", "probe_row_gather", "probe_slab_copy",
-                     "probe_empty"]
+                     "probe_empty", "rotated_nms"]
     assert {fn.source for fn in kernels.KERNELS} == set(kernels.SOURCES)
     for fn in kernels.KERNELS:
         src = open(os.path.join(kernels.CSRC, fn.source)).read()
