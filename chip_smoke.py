@@ -54,15 +54,19 @@ Phases, in order (any failure raises and the script exits non-zero):
                  real candidates (6 tasks, the top 1,000 each) and on
                  synthetic sets (N = 1, 63, 64, 65, 1,000; identical,
                  zero-width and invalid rows, tied scores; thresholds 0.01,
-                 0.2, 0.5; max_keep 83 and N): the kernel's IoU within
-                 1e-6 of `native.bev_iou`, keep masks equal, a pair
-                 decided differently only within 1e-5 of the threshold
-                 (counted and printed); timed beside its twin and bound;
+                 0.2, 0.5; max_keep 83 and N), each as a singleton call:
+                 the kernel's IoU within 1e-6 of `native.bev_iou`, keep
+                 masks equal, a pair decided differently only within 1e-5
+                 of the threshold (counted and printed); and each as a set
+                 of a batched call (a frame's 6 tasks in one call; the
+                 synthetic sets padded to N = 1,000), equal to its
+                 singleton call; the frame's call timed whole and launch
+                 by launch, beside its twin, bound and launch floor;
   9c. det_serve  under PyTorch's own TF32 flags, as a user's process has
                  them: `predict` per frame with host native NMS and with
                  device NMS, split into voxelize, forward + decode (+
                  device NMS), copies, host NMS and floors; the launches of one
-                 device-NMS pass (6 `rotated_nms` calls per frame); both
+                 device-NMS pass (one `rotated_nms` call per frame); both
                  modes' kept boxes from the same decode outputs; and
                  `stream_inference --synthetic 3 --device-nms`;
  10. train_kernels the weight-gradient work list built on the card against
@@ -552,8 +556,8 @@ def phase_main(res, ctx, n_scans=4, rounds=3):
 # name stems of the kernels in link_tpu_torch/csrc (`<stem>_kernel`)
 HAND_KERNELS = ("sorted_join", "join_pin", "gather_conv", "w_frag", "window_conv",
                 "gather_wgrad", "wgrad_reduce", "list_count", "list_scan",
-                "list_write", "row_gather", "slab_copy", "empty", "nms_mask",
-                "nms_sweep")
+                "list_write", "row_gather", "slab_copy", "empty", "nms_rank",
+                "nms_mask", "nms_walk")
 
 
 def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
@@ -995,19 +999,41 @@ def _nms_inputs(n: int, seed: int, dev):
             torch.from_numpy(valid).to(dev))
 
 
+def _nms_bound(boxes, valid):
+    """The least time of rotated NMS on this run's data, one set (N, 5) or
+    S sets (S, N, 5): bytes of boxes, scores, valid and keep once at the
+    HBM rate against NMS_PAIR_OPS per valid pair and NMS_CLIP_OPS per valid
+    pair whose circumscribed circles meet (each unordered pair once) at the
+    float32 CUDA-core rate; the larger, what bounds it, and the counts."""
+    import torch
+    boxes = boxes.reshape(-1, *boxes.shape[-2:])
+    valid = valid.reshape(-1, valid.shape[-1])
+    sets, n = valid.shape
+    eye = torch.eye(n, dtype=torch.bool, device=boxes.device)
+    pairs = clips = 0
+    for b, v in zip(boxes, valid):
+        both = v[:, None] & v[None, :] & ~eye
+        ctr = b[:, :2].double()
+        rad = 0.5 * torch.hypot(b[:, 2].double(), b[:, 3].double())
+        meet = torch.cdist(ctr, ctr) <= rad[:, None] + rad[None, :]
+        pairs += int(both.sum()) // 2
+        clips += int((both & meet).sum()) // 2
+    t_bytes = sets * n * (5 * 4 + 4 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    t_ops = (NMS_PAIR_OPS * pairs + NMS_CLIP_OPS * clips) \
+        / PEAK_OPS["float32"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", pairs, clips)
+
+
 def _nms_case(kernels, nms, native, boxes, scores, valid, thresh, max_keep,
-              role, timed=False, iters=20):
-    """rotated_nms against its twin on one candidate set. The kernel's IoU
-    (`rotated_nms_iou`, its IoU device function) must lie within
-    NATIVE_IOU_TOL of the native library's `bev_iou` on every valid pair;
-    the kernel's keep must equal the twin's walk over the kernel's own
-    overlaps, and each pair the kernel and the twin decide differently must
-    lie within NEAR_THRESH of the threshold; then the keep masks are equal
-    unless such a pair exists.
-    Timed: kernel and twin by graph replay, and the bound from this run's
-    data (bytes of boxes, scores, valid and keep; NMS_PAIR_OPS per valid
-    pair and NMS_CLIP_OPS per valid pair whose circumscribed circles meet,
-    each unordered pair once, at the float32 CUDA-core rate)."""
+              role):
+    """rotated_nms against its twin on one candidate set, as a singleton
+    call. The kernel's IoU (`rotated_nms_iou`, its tile code) must lie
+    within NATIVE_IOU_TOL of the native library's `bev_iou` on every valid
+    pair; the kernel's keep must equal the twin's walk over the kernel's
+    own overlaps, and each pair the kernel and the twin decide differently
+    must lie within NEAR_THRESH of the threshold; then the keep masks are
+    equal unless such a pair exists. Returns (the case, the keep)."""
     import torch
     n = scores.shape[0]
     keep = kernels.rotated_nms(boxes, scores, valid, thresh, max_keep)
@@ -1054,36 +1080,89 @@ def _nms_case(kernels, nms, native, boxes, scores, valid, thresh, max_keep,
     if case["keep_diff"] and not case["over_flips"]:
         raise AssertionError(f"rotated_nms {role} {shape}: keep differs "
                              "from the twin")
-    if timed:
-        ctr = boxes[:, :2].double()
-        rad = 0.5 * torch.hypot(boxes[:, 2].double(), boxes[:, 3].double())
-        meet = torch.cdist(ctr, ctr) <= rad[:, None] + rad[None, :]
-        pairs = int(both.sum()) // 2
-        clips = int((both & meet).sum()) // 2
-        nbytes = n * (5 * 4 + 4 + 1 + 1)
-        ops = NMS_PAIR_OPS * pairs + NMS_CLIP_OPS * clips
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS["float32"] * 1e3
-        case.update(
-            ms=cuda_ms(lambda: kernels.rotated_nms(boxes, scores, valid,
-                                                   thresh, max_keep), iters,
-                       f"rotated_nms {shape}"),
-            plain_ms=cuda_ms(lambda: nms.rotate_nms_device(
-                boxes, scores, valid, thresh, max_keep), 2,
-                f"rotate_nms_device {shape}"),
-            # the pair work alone: the IoU instrument runs the mask
-            # kernel's pair loop (and writes 8 B per pair)
-            pair_ms=cuda_ms(lambda: kernels.rotated_nms_iou(boxes), iters,
-                            f"rotated_nms_iou {shape}"),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, valid_pairs=pairs, clipped_pairs=clips)
-        log(f"rotated_nms {role} {shape}: kernel {case['ms']:.4f} ms (its "
-            f"pair work alone {case['pair_ms']:.4f}), twin "
-            f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.6f} ms "
-            f"({case['bound_by']}: {pairs} valid pairs, {clips} clipped); "
-            "library: none")
-    return case
+    return case, keep
+
+
+def _nms_batch(kernels, boxes, scores, valid, thresh, max_keep, singles,
+               role):
+    """One batched rotated_nms call over S sets of one N: each set's keep
+    must equal its singleton call's (`singles`, (S, N), or of its first
+    columns where a set was padded with invalid rows to the batch's N)."""
+    import torch
+    keep = kernels.rotated_nms(boxes, scores, valid, thresh, max_keep)
+    for s, single in enumerate(singles):
+        n = single.shape[0]
+        if not (torch.equal(keep[s, :n], single)
+                and not bool(keep[s, n:].any())):
+            raise AssertionError(f"rotated_nms {role}, set {s} of "
+                                 f"{len(singles)}: the batched call's keep "
+                                 "differs from the singleton call's")
+    return {"role": role, "sets": len(singles), "n": int(scores.shape[1]),
+            "thresh": thresh, "max_keep": max_keep,
+            "kept": [int(k.sum()) for k in keep]}
+
+
+def _pad_set(boxes, scores, valid, n):
+    """A candidate set padded with invalid rows to n."""
+    import torch
+    m = scores.shape[0]
+    return (torch.cat([boxes, boxes.new_zeros((n - m, 5))]),
+            torch.cat([scores, scores.new_zeros(n - m)]),
+            torch.cat([valid, valid.new_zeros(n - m)]))
+
+
+def _nms_frame_timing(kernels, nms, boxes, scores, valid, thresh, max_keep,
+                      iters=20):
+    """The frame's batched call (S sets) on the card: its time by graph
+    replay and each of its three launches' device time from a trace of the
+    real calls (`tools/nms_frame.frame_nms_timing`, which nms_frame.py
+    times for two checkouts), the batched twin, the empty launch
+    (`probe_empty`, the launch floor's unit), and the bound from this run's
+    data; max_abs_err is 1 where the call's keep differs from the batched
+    twin's (only a pair within NEAR_THRESH of the threshold may make it
+    so: `_nms_case`)."""
+    import torch
+    from link_tpu_torch.tools.nms_frame import frame_nms_timing
+    call = kernels.rotated_nms(boxes, scores, valid, thresh, max_keep)
+    twin = nms.rotate_nms_device(boxes, scores, valid, thresh, max_keep)
+    torch.cuda.synchronize()
+    shape = (f"S={scores.shape[0]} N={scores.shape[1]} thresh={thresh} "
+             f"max_keep={max_keep}")
+    timing = frame_nms_timing(kernels, (boxes, scores, valid), thresh,
+                              max_keep, iters=iters)
+    if timing["timed_by"] != "graph":
+        CAPTURE_FAILED.append(f"rotated_nms {shape}: {timing['timed_by']}")
+    names = ["ranks", "mask", "walk"]
+    stems = ["nms_rank_kernel", "nms_mask_kernel", "nms_walk_kernel"]
+    per_kernel = [[ms for k, ms in timing["kernel_ms"].items() if stem in k]
+                  for stem in stems]
+    if any(len(p) != 1 for p in per_kernel):
+        raise AssertionError(f"rotated_nms {shape}: the trace of the call "
+                             "does not hold each of its launches: "
+                             f"{timing['kernel_launches']}")
+    bound, by, pairs, clips = _nms_bound(boxes, valid)
+    empty = torch.zeros((8, 128), device=boxes.device)
+    t = {"shape": shape, "launch_names": names,
+         "max_abs_err": float((call != twin).any()), "ms": timing["ms"],
+         "launch_ms": [p[0] for p in per_kernel],
+         "traced_launches_per_call": timing["kernel_launches"]}
+    t["plain_ms"] = cuda_ms(lambda: nms.rotate_nms_device(
+        boxes, scores, valid, thresh, max_keep), 2,
+        f"rotate_nms_device {shape}")
+    t["empty_launch_ms"] = cuda_ms(lambda: kernels.probe_empty(empty), iters,
+                                   "probe_empty")
+    t["launch_floor_ms"] = kernels.ROTATED_NMS_LAUNCHES \
+        * t["empty_launch_ms"]
+    t.update(bound_ms=bound, bound_by=by, library_ms=None,
+             valid_pairs=pairs, clipped_pairs=clips)
+    log(f"rotated_nms frame call {shape}: {t['ms']:.4f} ms (launches "
+        + ", ".join(f"{a} {b:.4f}" for a, b in zip(t["launch_names"],
+                                                   t["launch_ms"]))
+        + f"), twin {t['plain_ms']:.4f} ms, bound {bound:.6f} ms ({by}: "
+        f"{pairs} valid pairs, {clips} clipped), launch floor "
+        f"{t['launch_floor_ms']:.4f} ms ({kernels.ROTATED_NMS_LAUNCHES} x "
+        f"{t['empty_launch_ms']:.4f}); library: none")
+    return t
 
 
 def phase_det_nms_kernels(res, ctx):
@@ -1092,7 +1171,11 @@ def phase_det_nms_kernels(res, ctx):
     config's threshold 0.2 and cap 83), then synthetic sets of N = 1, 63,
     64, 65 and 1,000 (identical, zero-width and invalid rows, tied scores)
     at thresholds 0.01, 0.2 and 0.5 with max_keep 83 and N, and an
-    all-invalid set."""
+    all-invalid set: each as a singleton call against the twin, then as a
+    set of one batched call (a frame's six tasks; the synthetic sets of one
+    threshold and cap, padded with invalid rows to N = 1,000, max_keep N as
+    1,000) against its singleton call. Then the frame's batched call timed,
+    whole and launch by launch, beside the twin and the bound."""
     import torch
     from link_tpu_torch import native
     from link_tpu_torch.models.center_head import nms_candidates
@@ -1100,31 +1183,53 @@ def phase_det_nms_kernels(res, ctx):
 
     pred = ctx["pred"]
     th, post = pred.cfg["nms_iou_threshold"], pred.cfg["nms_post_max_size"]
-    cases = []
+    cases, batches, frames = [], [], []
     for f, batch in enumerate(ctx["det_batches"]):
         cands = nms_candidates(pred.forward(batch), pred.cfg)
-        for t, (bx, sc, _, vm) in enumerate(cands):
-            cases.append(_nms_case(
-                kernels, nms, native, bx[0][:, [0, 1, 3, 4, 8]],
-                sc[0].contiguous(), vm[0].contiguous(), th, post,
-                f"frame {f} task {t}", timed=(f == 0 and t == 0)))
-    res["rotated_nms_case"] = cases[0]
+        bev = torch.cat([bx[:, :, [0, 1, 3, 4, 8]] for bx, *_ in cands])
+        sc = torch.cat([c[1] for c in cands])
+        vm = torch.cat([c[3] for c in cands])
+        singles = []
+        for t in range(len(cands)):
+            case, keep = _nms_case(kernels, nms, native, bev[t], sc[t],
+                                   vm[t], th, post, f"frame {f} task {t}")
+            cases.append(case)
+            singles.append(keep)
+        batches.append(_nms_batch(kernels, bev, sc, vm, th, post, singles,
+                                  f"frame {f}, its {len(cands)} tasks"))
+        frames.append((bev, sc, vm))
     dev = torch.device("cuda")
-    for n in (1, 63, 64, 65, 1000):
-        boxes, scores, valid = _nms_inputs(n, n, dev)
-        for thresh in (0.01, 0.2, 0.5):
-            for max_keep in (83, n):
-                cases.append(_nms_case(kernels, nms, native, boxes, scores,
-                                       valid, thresh, max_keep, "synthetic"))
-    boxes, scores, _ = _nms_inputs(65, 7, dev)
-    cases.append(_nms_case(kernels, nms, native, boxes, scores,
-                           torch.zeros(65, dtype=torch.bool, device=dev),
-                           0.2, 83, "all invalid"))
+    sets = {n: _nms_inputs(n, n, dev) for n in (1, 63, 64, 65, 1000)}
+    invalid = _nms_inputs(65, 7, dev)[:2] + (
+        torch.zeros(65, dtype=torch.bool, device=dev),)
+    for thresh in (0.01, 0.2, 0.5):
+        for cap in (83, None):
+            group = []
+            for n, (boxes, scores, valid) in sets.items():
+                case, keep = _nms_case(kernels, nms, native, boxes, scores,
+                                       valid, thresh, cap or n, "synthetic")
+                cases.append(case)
+                group.append(((boxes, scores, valid), keep))
+            if thresh == 0.2 and cap == 83:
+                case, keep = _nms_case(kernels, nms, native, *invalid, 0.2,
+                                       83, "all invalid")
+                cases.append(case)
+                group.append((invalid, keep))
+            padded = [_pad_set(*inp, 1000) for inp, _ in group]
+            batches.append(_nms_batch(
+                kernels, *(torch.stack(x) for x in zip(*padded)), thresh,
+                cap or 1000, [keep for _, keep in group],
+                f"synthetic, thresh {thresh}, max_keep {cap or 'N'}"))
     res["rotated_nms_cases"] = cases
+    res["rotated_nms_batches"] = batches
+    res["rotated_nms_case"] = dict(
+        _nms_frame_timing(kernels, nms, *frames[0], th, post),
+        role=f"frame 0, its {len(frames[0][1])} tasks in one call")
     real = [c for c in cases if c["role"].startswith("frame")]
     log(f"rotated_nms: {len(cases)} cases, keep masks equal to the twin's in "
-        f"{sum(not c['keep_diff'] for c in cases)}; pairs within "
-        f"{NEAR_THRESH} of the threshold: "
+        f"{sum(not c['keep_diff'] for c in cases)}; {len(batches)} batched "
+        f"calls over {sum(b['sets'] for b in batches)} sets, each equal to "
+        f"its singleton calls; pairs within {NEAR_THRESH} of the threshold: "
         f"{sum(c['near_pairs'] for c in cases)}, decided differently: "
         f"{sum(c['over_flips'] for c in cases) // 2}; largest IoU difference "
         f"{max(c['max_iou_diff'] for c in cases):.3g} from the twin, "
@@ -1181,8 +1286,8 @@ def _det_serve(res, ctx, rounds):
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     res["det_serve_launches"] = launches
-    tasks = len(host.num_classes)
-    want = len(frames) * tasks * kernels.ROTATED_NMS_LAUNCHES
+    # one rotated_nms call per frame, over every task
+    want = len(frames) * kernels.ROTATED_NMS_LAUNCHES
     log(f"det serve, device NMS, {len(frames)} frames: launches per frame "
         f"{ {k: v / len(frames) for k, v in launches.items() if v} }")
     if launches["rotated_nms"] != want or min(
@@ -1806,7 +1911,8 @@ KERNEL_CASE = {
     "probe_slab_copy": lambda res: _probe_case(
         res, "probe_slab_copy", letter="D", g=512),
     "probe_empty": lambda res: _probe_case(res, "probe_empty"),
-    # frame 0's first task: the top 1,000 candidates, thresh 0.2, cap 83
+    # frame 0's call over its 6 tasks: the top 1,000 candidates each,
+    # thresh 0.2, cap 83
     "rotated_nms": lambda res: res["rotated_nms_case"],
 }
 MAIN_PATHS = {"seg": "launches", "det": "det_launches",

@@ -1,5 +1,6 @@
 // mma_sm90.cuh: tensor-core and async-copy helpers shared by the sparse
-// conv kernels (gather_conv.cu, gather_wgrad.cu).
+// conv kernels (gather_conv.cu, gather_wgrad.cu, window_conv.cu); the NMS
+// walk (rotated_nms.cu) takes its cp.async helpers.
 //
 // Products run as warp-level `mma.sync`:
 //   * bfloat16 inputs: m16n8k16 bf16 x bf16 -> f32. The products of two

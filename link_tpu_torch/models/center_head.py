@@ -141,43 +141,52 @@ def decode_boxes(preds: List[Dict[str, torch.Tensor]], test_cfg: Dict,
     return out
 
 
+def _candidates(task_outs, test_cfg: Dict):
+    """The `nms_candidates` of every task and batch row at once, stacked
+    (T * B rows, task-major): one stable sort of the masked scores for the
+    frame. Returns (boxes (T*B, k, 9), scores (T*B, k) with -inf where
+    invalid, labels, valid) and B; every task has the same H*W."""
+    pre = int(test_cfg.get("nms_pre_max_size", 1000))
+    boxes, scores, labels, mask = (torch.stack(x) for x in zip(*task_outs))
+    t, b, n, c = boxes.shape
+    k = min(pre, n)
+    sc = torch.where(mask, scores, torch.full_like(scores, -float("inf")))
+    top_sc, top_idx = torch.sort(sc.reshape(t * b, n), dim=1,
+                                 descending=True, stable=True)
+    # the scores contiguous, as the kernel takes them
+    top_sc, top_idx = top_sc[:, :k].contiguous(), top_idx[:, :k]
+    return (torch.gather(boxes.reshape(t * b, n, c), 1,
+                         top_idx[..., None].expand(t * b, k, c)),
+            top_sc, torch.gather(labels.reshape(t * b, n), 1, top_idx),
+            torch.gather(mask.reshape(t * b, n), 1, top_idx)), b
+
+
 def nms_candidates(task_outs, test_cfg: Dict):
     """Per task of `decode_boxes` outputs, the top k = min(nms_pre_max_size,
     H*W) candidates by masked score, by a stable sort (ties by the lower
     index, as jax.lax.top_k): (boxes (B, k, 9), scores (B, k) with -inf
     where invalid, labels (B, k), valid (B, k))."""
-    pre = int(test_cfg.get("nms_pre_max_size", 1000))
-    out = []
-    for boxes, scores, labels, mask in task_outs:
-        b, n, c = boxes.shape
-        k = min(pre, n)
-        sc = torch.where(mask, scores, torch.full_like(scores, -float("inf")))
-        top_sc, top_idx = torch.sort(sc, dim=1, descending=True, stable=True)
-        top_sc, top_idx = top_sc[:, :k], top_idx[:, :k]
-        out.append((torch.gather(boxes, 1, top_idx[..., None].expand(b, k, c)),
-                    top_sc, torch.gather(labels, 1, top_idx),
-                    torch.gather(mask, 1, top_idx)))
-    return out
+    stacked, b = _candidates(task_outs, test_cfg)
+    return [tuple(x[t * b:(t + 1) * b] for x in stacked)
+            for t in range(len(task_outs))]
 
 
 def device_nms(task_outs, test_cfg: Dict):
     """Rotated NMS on the device over `decode_boxes` outputs
-    (link_tpu/models/center_head.py:276-311): per task the `nms_candidates`,
-    then per batch row the `rotated_nms` kernel on their BEV columns
-    [x y w l r], the keep capped at nms_post_max_size. Returns per task
-    (boxes (B, k, 9), scores (B, k) zeroed where invalid, labels, keep
-    mask): the tuple contract of `decode_boxes`, with the mask now the
-    post-NMS keep. Nothing leaves the device."""
+    (link_tpu/models/center_head.py:276-311): the `nms_candidates` of every
+    task and batch row, then ONE `rotated_nms` call over all of them, the
+    sets stacked (T * B, k) on their BEV columns [x y w l r], the keep
+    capped at nms_post_max_size. Returns per task (boxes (B, k, 9), scores
+    (B, k) zeroed where invalid, labels, keep mask): the tuple contract of
+    `decode_boxes`, with the mask now the post-NMS keep. Nothing leaves the
+    device."""
     post = int(test_cfg.get("nms_post_max_size", 83))
     th = float(test_cfg.get("nms_iou_threshold", 0.2))
-    out = []
-    for bx, sc, lb, vm in nms_candidates(task_outs, test_cfg):
-        # [x y w l r] by slices: a list index would copy itself from the
-        # host, and the copy waits for the stream
-        bev = torch.cat([bx[..., 0:2], bx[..., 3:5], bx[..., 8:9]], -1)
-        keeps = [rotated_nms(bev[i], sc[i].contiguous(), vm[i].contiguous(),
-                             th, post)
-                 for i in range(bx.shape[0])]
-        out.append((bx, torch.where(vm, sc, torch.zeros_like(sc)), lb,
-                    torch.stack(keeps)))
-    return out
+    (bx, sc, lb, vm), b = _candidates(task_outs, test_cfg)
+    # [x y w l r] by slices: a list index would copy itself from the host,
+    # and the copy waits for the stream
+    bev = torch.cat([bx[..., 0:2], bx[..., 3:5], bx[..., 8:9]], -1)
+    keep = rotated_nms(bev, sc, vm, th, post)
+    sc = torch.where(vm, sc, torch.zeros_like(sc))
+    return [tuple(x[t * b:(t + 1) * b] for x in (bx, sc, lb, keep))
+            for t in range(len(task_outs))]

@@ -25,7 +25,8 @@ Two have no Pallas counterpart:
     copy of g.
   * `rotated_nms` (csrc/rotated_nms.cu) replaces `rotate_nms_jax`
     (link_tpu/ops/nms.py:171): the keep mask of rotated BEV NMS over a
-    fixed-size candidate set, on the det serving path with device NMS.
+    fixed-size candidate set, or over S such sets in one call, on the det
+    serving path with device NMS (one call per frame).
 
 Three replace the Mosaic probes of tools/probe_mosaic.py and
 tools/probe_mosaic2.py (csrc/probes.cu): `probe_row_gather`,
@@ -882,44 +883,57 @@ _kernel(probe_empty, "probes.cu", "tools/probe_mosaic2.py:97", [_P, _P, _P])
 # --------------------------------------------------------------------------
 # rotated_nms
 
-NMS_MAX_N = 8192            # candidates one call takes (csrc/rotated_nms.cu)
-NMS_TILE = 64               # boxes per mask tile side: one 64-bit word
-ROTATED_NMS_LAUNCHES = 2    # kernels of one call: the pair mask, the walk
+NMS_MAX_N = 8192            # candidates per set one call takes
+NMS_TILE = 64               # ranks per mask tile side: one 64-bit word
+NMS_PLANES = 12             # doubles of one box in the scratch
+ROTATED_NMS_LAUNCHES = 3    # kernels of one call: ranks and boxes, the pair
+#                             mask, the walk (every set in each)
+
+
+def _nms_scratch_bytes(sets: int, n: int) -> int:
+    """Bytes of `rotated_nms`'s scratch (csrc/rotated_nms.cu, `carve`): the
+    mask (S, N, words) uint64, the boxes (S, 12, N) float64 in rank order,
+    order (S, N) int32 and the valid counts (S,) int32."""
+    words = -(-n // NMS_TILE)
+    return sets * n * (words * 8 + NMS_PLANES * 8 + 4) + sets * 4
 
 
 def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 valid: torch.Tensor, thresh: float,
                 max_keep: int) -> torch.Tensor:
-    """Rotated BEV NMS over a fixed-size candidate set: boxes (N, 5) float32
-    [x y w l r], scores (N,) float32, valid (N,) bool. Returns the keep mask
-    (N,) bool in input order: at most max_keep kept, with priority by
-    descending score (ties by the lower index); a pair overlaps when its
-    BEV IoU exceeds thresh. The plain twin is `nms.rotate_nms_device`. Two
-    launches; no sort, copy or synchronization outside them."""
+    """Rotated BEV NMS over one candidate set, boxes (N, 5) float32
+    [x y w l r], scores (N,) float32, valid (N,) bool, or over S sets of
+    the same N at once (boxes (S, N, 5), scores and valid (S, N)). Returns
+    the keep mask of the same shape as scores, bool, in input order: per
+    set at most max_keep kept, with priority by descending score (ties by
+    the lower index); a pair overlaps when its BEV IoU exceeds thresh. The
+    plain twin is `nms.rotate_nms_device`. Three launches for all sets; no
+    sort, copy or synchronization outside them."""
     if _on_cpu(boxes, scores, valid):
         from .nms import rotate_nms_device
         return rotate_nms_device(boxes, scores, valid, thresh, max_keep)
     _check_cuda("rotated_nms", boxes, scores, valid)
-    n = scores.shape[0]
+    if scores.dim() not in (1, 2):
+        raise ValueError("rotated_nms: scores (N,) or (S, N)")
+    sets = 1 if scores.dim() == 1 else scores.shape[0]
+    n = scores.shape[-1]
     if (boxes.dtype != torch.float32 or scores.dtype != torch.float32
-            or valid.dtype != torch.bool or boxes.shape != (n, 5)
-            or scores.dim() != 1 or valid.shape != (n,)):
-        raise ValueError("rotated_nms: boxes (N, 5) float32, scores (N,) "
-                         "float32, valid (N,) bool")
+            or valid.dtype != torch.bool
+            or boxes.shape != (*scores.shape, 5)
+            or valid.shape != scores.shape):
+        raise ValueError("rotated_nms: boxes ([S,] N, 5) float32, scores "
+                         "([S,] N) float32, valid ([S,] N) bool")
     if n > NMS_MAX_N:
         raise ValueError(f"rotated_nms: {n} candidates > {NMS_MAX_N}")
-    keep = torch.empty((n,), dtype=torch.bool, device=boxes.device)
-    if n == 0:
+    keep = torch.empty(scores.shape, dtype=torch.bool, device=boxes.device)
+    if keep.numel() == 0:
         return keep
-    words = -(-n // NMS_TILE)
-    mask = torch.empty((n * words,), dtype=torch.int64, device=boxes.device)
-    partial = torch.empty((words * n,), dtype=torch.int32,
-                          device=boxes.device)
-    rc = _entry(rotated_nms)(
-        boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), n,
-        float(thresh), max(0, min(int(max_keep), n)), mask.data_ptr(),
-        partial.data_ptr(), keep.data_ptr(), _stream(boxes))
-    _raise_on("rotated_nms", rc)
+    nbytes = _nms_scratch_bytes(sets, n)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=boxes.device)
+    _raise_on("rotated_nms", _entry(rotated_nms)(
+        boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), sets, n,
+        float(thresh), max(0, min(int(max_keep), n)), scratch.data_ptr(),
+        nbytes, keep.data_ptr(), _stream(boxes)))
     rotated_nms.launches += ROTATED_NMS_LAUNCHES
     return keep
 
@@ -927,14 +941,16 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
 _kernel(rotated_nms, "rotated_nms.cu",
         "link_tpu/ops/nms.py:171 (no Pallas counterpart: rotate_nms_jax "
         "runs in XLA)",
-        [_P, _P, _P, _I, ctypes.c_float, _I, _P, _P, _P, _P])
+        [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _LL, _P, _P])
 
 
 def rotated_nms_iou(boxes: torch.Tensor) -> torch.Tensor:
     """The BEV IoU matrix (N, N) float64 of (N, 5) float32 boxes on the
-    card, from the device function `rotated_nms` thresholds (row i clipped
-    by column j). An instrument for holding the kernel's IoU against
-    `nms.rotated_iou_bev`; no path calls it, and it counts no launch."""
+    card, from the tile code whose IoU `rotated_nms` thresholds (row i the
+    clip's subject, column j the clip quad), in input order and over every
+    pair. An instrument for holding the kernel's IoU against
+    `nms.rotated_iou_bev` and `native.bev_iou`; no path calls it, and it
+    counts no launch."""
     _check_cuda("rotated_nms_iou", boxes)
     n = boxes.shape[0]
     if boxes.dtype != torch.float32 or boxes.shape != (n, 5) \

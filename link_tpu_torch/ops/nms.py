@@ -187,19 +187,25 @@ def nms_keep(over: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     `argsort(-where(valid, scores, -inf))`), a valid candidate that no kept
     one overlaps is kept, and it suppresses the later candidates it
     overlaps; the first max_keep kept stay. Returns the keep mask (N,) in
-    input order."""
-    n = scores.shape[0]
+    input order. With a leading set dimension (over (S, N, N), scores and
+    valid (S, N)) each set gives what its own call gives, in one walk over
+    the N ranks for all sets."""
+    if scores.dim() == 1:
+        return nms_keep(over[None], scores[None], valid[None], max_keep)[0]
+    sets, n = scores.shape
     key = torch.where(valid, scores, torch.full_like(scores, -float("inf")))
-    order = torch.sort(-key, stable=True).indices
-    valid_s = valid[order]
-    over_s = over[order][:, order] & valid_s[None, :] & valid_s[:, None]
+    order = torch.sort(-key, dim=1, stable=True).indices      # (S, N)
+    valid_s = torch.gather(valid, 1, order)
+    rows = torch.gather(over, 1, order[:, :, None].expand(sets, n, n))
+    over_s = (torch.gather(rows, 2, order[:, None, :].expand(sets, n, n))
+              & valid_s[:, None, :] & valid_s[:, :, None])
     later = torch.arange(n, device=scores.device)
     supp = ~valid_s
     for i in range(n):
-        supp = supp | (over_s[i] & (later > i) & ~supp[i])
+        supp = supp | (over_s[:, i] & (later > i) & ~supp[:, i:i + 1])
     keep_s = ~supp & valid_s
-    keep_s = keep_s & (torch.cumsum(keep_s.to(torch.int32), 0) <= max_keep)
-    return torch.zeros_like(valid).index_put((order,), keep_s)
+    keep_s = keep_s & (torch.cumsum(keep_s.to(torch.int32), 1) <= max_keep)
+    return torch.zeros_like(valid).scatter(1, order, keep_s)
 
 
 def rotate_nms_device(boxes: torch.Tensor, scores: torch.Tensor,
@@ -209,9 +215,14 @@ def rotate_nms_device(boxes: torch.Tensor, scores: torch.Tensor,
     `rotate_nms_jax`: boxes (N, 5) [x y w l r], scores (N,), valid (N,)
     bool. Returns the keep mask in input order: at most max_keep kept, with
     priority by descending score (ties by the lower index); a pair
-    overlaps when its `rotated_iou_bev` exceeds thresh."""
-    return nms_keep(rotated_iou_bev(boxes) > thresh, scores, valid,
-                    max_keep)
+    overlaps when its `rotated_iou_bev` exceeds thresh. With a leading set
+    dimension (boxes (S, N, 5), scores and valid (S, N)) each set gives
+    what its own call gives (the IoU one set at a time, the walk once)."""
+    if scores.dim() == 1:
+        return nms_keep(rotated_iou_bev(boxes) > thresh, scores, valid,
+                        max_keep)
+    over = torch.stack([rotated_iou_bev(b) > thresh for b in boxes])
+    return nms_keep(over, scores, valid, max_keep)
 
 
 def circle_nms_device(xy: torch.Tensor, scores: torch.Tensor,

@@ -11,17 +11,21 @@ On the same numpy inputs, in the same process:
     on the closest calls of a det frame's candidates, pairs of neighbouring
     BEV cells 42-54 m from the origin, where `rotated_iou_bev_jax`'s
     absolute coordinates lose more than 5e-5;
-  * `rotate_nms_device` against `rotate_nms_jax`, and `device_nms` against
-    JAX's `device_nms`: keep masks and gathered rows exactly equal, with
-    tied (bf16-quantized) scores, all-invalid rows, N = 1, k < N and a
-    binding max_keep. The inputs are drawn so that no valid pair's IoU lies
-    within 1e-5 of the threshold (checked), where the two IoU routines could
-    decide a pair differently;
-  * a CPU emulation of the kernel's algorithm (csrc/rotated_nms.cu: the
-    input-order overlap mask, ranks counted per 64-column tile on a
-    canonical total-order key, the capped walk) with the native clip's IoU,
-    against `rotate_nms_jax`, exactly, signed zeros, NaN and -inf scores
-    included;
+  * `rotate_nms_device` against `rotate_nms_jax`, and `device_nms` (one
+    `rotated_nms` call over every task and batch row) against JAX's
+    `device_nms`: keep masks and gathered rows exactly equal, with tied (bf16-quantized) scores, all-invalid rows,
+    N = 1, k < N and a binding max_keep. The inputs are drawn so that no
+    valid pair's IoU lies within 1e-5 of the threshold (checked), where the
+    two IoU routines could decide a pair differently;
+  * the batched twin (S sets in one call) against the per-set calls and
+    `rotate_nms_jax`, on S sets of different valid counts (an all-invalid
+    one among them) at N = 1, 63, 64, 65 and 1,000;
+  * a CPU emulation of the kernel's algorithm (csrc/rotated_nms.cu: ranks
+    counted on a canonical total-order key, the rank-ordered upper-triangle
+    mask with the earlier rank as the clip's subject, the walk 64 ranks at
+    a time on each chunk's diagonal word, capped) with the native clip's
+    IoU, against `rotate_nms_jax`, exactly, signed zeros, NaN and -inf
+    scores included, one set and S sets;
   * both circle NMS versions against JAX's, exactly;
   * `SingleFramePredictor(device_nms=True)` against the JAX predictor with
     `device_nms=True` on the tiny frame with shared weights (labels exact,
@@ -45,6 +49,7 @@ from link_tpu.ops import nms as jnms
 from link_tpu.utils.torch_import_det import translate_voxelnet
 from link_tpu_torch import native
 from link_tpu_torch.inference import SingleFramePredictor as TPredictor
+from link_tpu_torch.models import center_head as t_center_head
 from link_tpu_torch.models.center_head import device_nms as t_device_nms
 from link_tpu_torch.ops import kernels
 from link_tpu_torch.ops import nms as tnms
@@ -234,34 +239,84 @@ def _sort_key(scores):
     return bits ^ ((bits >> 31) & 0x7fffffff)
 
 
-def _kernel_algorithm(boxes, scores, valid, thresh, max_keep, tile=64):
-    """The two launches of csrc/rotated_nms.cu, on the CPU: the input-order
-    overlap mask (row i clipped by column j, the native clip's IoU), each
-    valid row's rank as a sum of per-tile counts, then the capped walk."""
+INT32_MAX = 2**31 - 1
+
+
+def _word(bits):
+    """A row of at most 64 bools as one uint64 word, bit k = bits[k]."""
+    padded = np.zeros(64, bool)
+    padded[:len(bits)] = bits
+    return np.packbits(padded, bitorder="little").view("<u8")[0]
+
+
+def _kernel_algorithm(boxes, scores, valid, thresh, max_keep, tile=64,
+                      warps=8):
+    """The three launches of csrc/rotated_nms.cu, on the CPU, for one set
+    or, with a leading dimension, for S sets (each on its own, as the
+    kernel's blocks of one set see nothing of another's):
+      1. ranks: each valid row counts the valid rows before it on a
+         canonical total-order key (invalid rows keyed INT32_MAX), each of
+         `warps` warps an equal span of the columns, the spans' counts
+         summed; the rows placed at their ranks (`order`);
+      2. the pair mask in rank order, upper triangle only: per (row tile
+         <= column tile) of the valid ranks, bit (r, c) for c > r when the
+         native clip's IoU with rank r, the earlier, as the subject exceeds
+         thresh;
+      3. the walk, 64 ranks at a time: each chunk resolved serially on its
+         diagonal word (keep a rank no kept rank removed, OR in its bits),
+         stopping at max_keep keeps; then the kept rows' words of the
+         later chunks ORed into `removed`. The keep is written in input
+         order through `order`."""
+    if scores.ndim == 2:
+        return np.stack([_kernel_algorithm(b, sc, v, thresh, max_keep, tile,
+                                           warps)
+                         for b, sc, v in zip(boxes, scores, valid)])
     n = len(scores)
-    b7 = np.zeros((n, 7), np.float32)
-    b7[:, [0, 1, 3, 4, 6]] = boxes
-    b7[:, 5] = 1
-    over = ((native.bev_iou(b7, b7) > thresh) & valid[:, None]
-            & valid[None, :] & ~np.eye(n, dtype=bool))
-    key = _sort_key(scores)
+    # launch 1
+    key = np.where(valid, _sort_key(scores), np.int32(INT32_MAX))
     idx = np.arange(n)
+    span = -(-n // warps)
     rank = np.zeros(n, np.int64)
-    for j0 in range(0, n, tile):
-        cols = idx[j0:j0 + tile][valid[j0:j0 + tile]]
-        rank += ((key[cols][None, :] < key[:, None])
-                 | ((key[cols][None, :] == key[:, None])
-                    & (cols[None, :] < idx[:, None]))).sum(1)
-    order = np.empty(int(valid.sum()), np.int64)
+    for w in range(warps):
+        j = idx[w * span:(w + 1) * span]
+        rank += ((key[j][None, :] < key[:, None])
+                 | ((key[j][None, :] == key[:, None])
+                    & (j[None, :] < idx[:, None]))).sum(1)
+    nv = int(valid.sum())
+    order = np.full(nv, -1, np.int64)
     order[rank[valid]] = idx[valid]
-    removed = np.zeros(n, bool)
+    assert (np.sort(rank[valid]) == np.arange(nv)).all()
+    # launch 2
+    b7 = np.zeros((nv, 7), np.float32)
+    b7[:, [0, 1, 3, 4, 6]] = boxes[order]
+    b7[:, 5] = 1
+    over = native.bev_iou(b7, b7) > thresh
+    words = -(-nv // tile)
+    mask = np.zeros((nv, words), np.uint64)
+    for rt in range(words):
+        for ct in range(rt, words):
+            for r in range(rt * tile, min(nv, (rt + 1) * tile)):
+                c = np.arange(ct * tile, min(nv, (ct + 1) * tile))
+                mask[r, ct] = _word(over[r, c] & (c > r))
+    # launch 3
+    removed = np.zeros(words, np.uint64)
     keep = np.zeros(n, bool)
-    for i in order:
-        if keep.sum() == max_keep:
+    kept = 0
+    for c in range(words):
+        if kept >= max_keep:
             break
-        if not removed[i]:
-            keep[i] = True
-            removed |= over[i]
+        rem, kb = int(removed[c]), 0
+        for b in range(min(tile, nv - c * tile)):
+            if kept >= max_keep:
+                break
+            if not (rem >> b) & 1:
+                kb |= 1 << b
+                kept += 1
+                rem |= int(mask[c * tile + b, c])
+        for b in range(tile):
+            if (kb >> b) & 1:
+                keep[order[c * tile + b]] = True
+                removed[c + 1:] |= mask[c * tile + b, c + 1:]
     return keep
 
 
@@ -309,14 +364,25 @@ def _task_outs(seed, b=2, n=96, ncls=(1, 2, 2)):
     return outs
 
 
-def test_device_nms_matches_jax():
+def test_device_nms_matches_jax(monkeypatch):
+    """Both packages' `device_nms` on the same decoded outputs, with the
+    config's pre-NMS cap; the port stacks every task and batch row into
+    one `rotated_nms` call."""
     cfg = dict(nms_pre_max_size=64, nms_post_max_size=10,
                nms_iou_threshold=0.2)
     outs = _task_outs(0)
+    calls = []
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return kernels.rotated_nms(*args)
+
+    monkeypatch.setattr(t_center_head, "rotated_nms", counting)
     want = j_device_nms([tuple(jnp.asarray(a) for a in t) for t in outs],
                         cfg)
     got = t_device_nms([tuple(torch.from_numpy(a) for a in t)
                         for t in outs], cfg)
+    assert calls == [(3 * 2, 64, 5)]
     for (gb, gs, gl, gk), (wb, ws, wl, wk) in zip(got, want):
         assert gb.shape == (2, 64, 9) and gk.dtype == torch.bool
         for g, w in ((gb, wb), (gs, ws), (gl, wl), (gk, wk)):
@@ -327,6 +393,61 @@ def test_device_nms_matches_jax():
             assert _near_pairs(_jax_iou(bev[i]), valid[i], 0.2) == 0
     keeps = np.stack([k.numpy() for *_, k in got])
     assert keeps[:, 0].sum(-1).max() == 10 and keeps[-1, 1].sum() == 0
+
+
+def _batched_sets(n):
+    """S candidate sets of N = n with different valid counts: a dense set
+    with float scores, a sparse one with tied (bf16-quantized) scores, one
+    with signed zeros, NaN and infinite scores, and an all-invalid set."""
+    rng = np.random.default_rng(100 + n)
+    spread = 0.8 * np.sqrt(n) + 1
+    boxes = np.stack([_boxes5(n, 200 + n + s, spread) for s in range(4)])
+    logits = torch.tensor(rng.integers(-8, 8, n) / 4.0,
+                          dtype=torch.bfloat16).float().numpy()
+    scores = np.stack([
+        rng.random(n).astype(np.float32),
+        (1 / (1 + np.exp(-logits))).astype(np.float32),
+        rng.choice(np.array([0.0, -0.0, np.nan, -np.inf, np.inf, 0.5, 0.25],
+                            np.float32), n),
+        rng.random(n).astype(np.float32)])
+    valid = np.stack([rng.random(n) > 0.1, rng.random(n) > 0.6,
+                      rng.random(n) > 0.3, np.zeros(n, bool)])
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+def test_batched_nms_matches_sets_and_jax(n):
+    """One call over S sets (the batched twin, and the kernel's wrapper,
+    which takes it on the CPU) gives each set what its own call gives and
+    what `rotate_nms_jax` gives; the CPU emulation of the kernel's three
+    launches too. N = 1,000 runs the det config's threshold and cap only
+    (its IoUs are seconds each on the CPU)."""
+    boxes, scores, valid = _batched_sets(n)
+    cases = ((0.2, 83),) if n == 1000 else ((0.01, n), (0.2, 83), (0.5, 5))
+    for thresh, max_keep in cases:
+        for s in range(len(boxes)):
+            assert _near_pairs(_jax_iou(boxes[s]), valid[s], thresh) == 0
+        args = (torch.from_numpy(boxes), torch.from_numpy(scores),
+                torch.from_numpy(valid), thresh, max_keep)
+        got = tnms.rotate_nms_device(*args).numpy()
+        assert got.shape == (4, n) and got.dtype == bool
+        if n < 1000:
+            np.testing.assert_array_equal(kernels.rotated_nms(*args).numpy(),
+                                          got)
+        np.testing.assert_array_equal(
+            _kernel_algorithm(boxes, scores, valid, thresh, max_keep), got)
+        for s in range(len(boxes)):
+            one = tnms.rotate_nms_device(
+                torch.from_numpy(boxes[s]), torch.from_numpy(scores[s]),
+                torch.from_numpy(valid[s]), thresh, max_keep).numpy()
+            np.testing.assert_array_equal(got[s], one)
+            np.testing.assert_array_equal(
+                got[s], _jax_nms(boxes[s], scores[s], valid[s], thresh,
+                                 max_keep))
+        assert not got[3].any() and not (got & ~valid).any()
+        assert (got.sum(1) <= max_keep).all()
+        if n > 1:
+            assert got[0].sum() > 1
 
 
 def test_circle_nms_matches_jax():
