@@ -23,6 +23,33 @@ Phases, in order (any failure raises and the script exits non-zero):
   5. profile     one more pass of the seg path under torch.profiler: device
                  time by kernel, and the device's idle share against the
                  unprofiled wall time of phase 4;
+  5b. seg_families_golden the ELKEncoder, MinkUNet and SPVCNN goldens
+                 (tests/goldens/{elkencoder,minkunet,spvcnn}_cr0.25.npz,
+                 reference weights) in float32 at DEFAULT_CAPACITIES against
+                 the reference logits, rel err < 2e-4; the encoder through
+                 its sparse aux join and, with a grid extent, its dense aux
+                 grid on every level;
+  5c. seg_families_main each family from its config
+                 (configs/semantic_kitti/{linkencoder,minkunet,spvcnn}) by
+                 `make_model` at cr1.0 and full depth, seeded random
+                 weights, on phase 4's scans (the encoder and MinkUNet in
+                 bfloat16, SPVCNN in float32): launch counts around one
+                 pass (`gather_conv` once per K>1 conv; `sorted_join` once
+                 per plan, sparse ELK window, `upsample_voxel` and SPVCNN
+                 point join), scans/s (best of 3 rounds of 4), and one more
+                 pass profiled: device time, idle share, the two kernels'
+                 ms, the join-site check, and the ms and launches of the
+                 join inputs that the new sites form in PyTorch before
+                 their join (range `coords.JOIN_INPUT_RANGE`, entered once
+                 per `upsample_voxel` and uncached point join); the
+                 encoder's aux path per level;
+  5d. seg_families_hold each family at cr1.0 in float32 on phase 4's scan
+                 0, the card against the CPU (plain twins), same weights,
+                 rel err < 2e-4;
+  5e. seg_families_eval `link_tpu_torch.tools.seg_evaluate` on the card for
+                 each family (a checkpoint of 5c's model, the synthetic val
+                 split, 2 scans at the config's capacities x 1.6):
+                 point-level mIoU and ms per scan;
   6. det_kernels `window_conv` and the three modes of `sorted_join` against
                  their twins at the det path's shapes (163,840-row level 0
                  and 81,920-row level 1 of one synthetic 160k-voxel
@@ -97,7 +124,13 @@ Phases, in order (any failure raises and the script exits non-zero):
  15. path_shapes `gather_conv` and `gather_wgrad` against their twins,
                  bit-equal over two runs, at every distinct shape and dtype
                  of one more seg pass, det pass and training step (their
-                 inputs recorded as the paths make them);
+                 inputs recorded as the paths make them); then one more
+                 pass of each seg family: `gather_conv` at each (K, Ci, Co,
+                 dtype) no earlier path gives it (f32 rel < 1e-5, bf16 <
+                 8e-3, bit-equal over two runs, timed with its bound and
+                 launches per scan), and `sorted_join` exactly against its
+                 twin at every call of the new join sites
+                 (`upsample_voxel`, `voxel_to_point`, `point_to_voxel`);
  16. probes      every case of `link_tpu_torch.tools.probe_gather` (the
                  Mosaic probes' shapes and the port's own), each exact
                  against its twin, timed beside its bound and the library
@@ -641,6 +674,289 @@ def phase_profile(res, ctx):
                                   "scan", ranges=(JOIN_RANGE,))
     _check_join_sites(res["profile"], "scan",
                       res["launches"]["sorted_join"] / len(scans))
+
+
+# --------------------------------------------------------------------------
+# the other seg families: ELKEncoder, MinkUNet, SPVCNN
+
+FAMILIES = ("linkencoder", "minkunet", "spvcnn")
+# the main path's dtype per family: the ELK encoder and MinkUNet in
+# bfloat16 as ELKUNet's `main`; SPVCNN has float32 only, as the JAX model
+FAMILY_DTYPE = {"linkencoder": "bfloat16", "minkunet": "bfloat16",
+                "spvcnn": "float32"}
+FAMILY_GOLDEN = {"linkencoder": "elkencoder_cr0.25.npz",
+                 "minkunet": "minkunet_cr0.25.npz",
+                 "spvcnn": "spvcnn_cr0.25.npz"}
+# every U-Net of the families builds 9 conv plans per scan (one join each):
+# one submanifold plan at each of the 5 strides and the 4 down convs'
+FAMILY_PLANS = 9
+# SPVCNN's point joins per scan: voxel_to_point at strides 1, 16 and 4
+# (stride 1 again reuses the first), point_to_voxel at strides 16 and 4
+# (stride 1 reuses initial_voxelize's map)
+SPVCNN_POINT_JOINS = 5
+
+
+def _family_config(name: str) -> str:
+    return os.path.join(HERE, "configs", "semantic_kitti", name,
+                        "default.yaml")
+
+
+def _golden_family_model(name, g, grid_extent=None):
+    """The family at the golden's cr with the reference weights, float32,
+    at DEFAULT_CAPACITIES on the card: the encoder at the golden's r=3,
+    s=5, groups=2, cos (tests/test_golden_parity.py:113-114), SPVCNN on
+    integer positions (pres = vres = 1)."""
+    import torch
+    from link_tpu_torch.models.linkencoder import ELKEncoder
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.models.minkunet import MinkUNet
+    from link_tpu_torch.models.spvcnn import SPVCNN
+    from link_tpu_torch.utils.convert import load_reference_state_dict
+    kw = dict(cr=float(g["cr"]), capacities=DEFAULT_CAPACITIES,
+              device="cuda")
+    if name == "linkencoder":
+        model = ELKEncoder(20, r=3, s=5, groups=2, baseop="cos",
+                           grid_extent=grid_extent, **kw)
+    elif name == "minkunet":
+        model = MinkUNet(20, **kw)
+    else:
+        model = SPVCNN(20, pres=1.0, vres=1.0, **kw)
+    load_reference_state_dict(model, {
+        k[3:].replace("__", "."): torch.from_numpy(np.array(g[k]))
+        for k in g.files if k.startswith("sd_")})
+    return model.eval()
+
+
+def _elk_aux_paths(model, ext):
+    """Which aux path ("dense" or "sparse") each ELK level of the encoder
+    takes on a tensor bounded by `ext` (ops/elk.use_dense_aux)."""
+    import torch
+    from link_tpu_torch.ops.elk import use_dense_aux
+    from link_tpu_torch.sparse.tensor import SparseTensor
+    probe = SparseTensor(feats=torch.empty(0, 1),
+                         coords=torch.empty(0, 4, dtype=torch.int32),
+                         nnz=torch.tensor(0), grid_extent=ext)
+    paths = []
+    for lvl in range(1, 5):
+        block = getattr(model, f"elk{lvl}")
+        width = (3 if block.baseop == "cos_x" else 2) * block.inc
+        gs = use_dense_aux(probe, (1 << lvl) * model.s, model.r, width)
+        paths.append("sparse" if gs is None else "dense")
+    return paths
+
+
+def phase_seg_families_golden(res, ctx):
+    """The ELKEncoder, MinkUNet and SPVCNN goldens (reference weights and
+    logits, cr 0.25) in float32 on the card at DEFAULT_CAPACITIES; the
+    encoder through its sparse aux join and, with a grid extent, its dense
+    aux grid."""
+    import torch
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.sparse.coords import INVALID_COORD
+    from link_tpu_torch.sparse.tensor import make_sparse_tensor
+
+    errs = {}
+    for name in FAMILIES:
+        g = np.load(os.path.join(HERE, "tests", "goldens",
+                                 FAMILY_GOLDEN[name]))
+        coords, feats, want = g["coords"], g["feats"], g["logits"]
+        n, cap = len(coords), DEFAULT_CAPACITIES[0]
+        cpad = np.full((cap, 4), INVALID_COORD, np.int32)
+        fpad = np.zeros((cap, feats.shape[1]), np.float32)
+        cpad[:n], fpad[:n] = coords, feats
+        ext = tuple(int(v) for v in coords[:, :3].max(0) + 1) + (1,)
+        runs = ({"sparse": None, "dense": ext} if name == "linkencoder"
+                else {"": None})
+        for aux, grid in runs.items():
+            model = _golden_family_model(name, g, grid)
+            if name == "linkencoder":
+                paths = _elk_aux_paths(model, grid)
+                if paths != [aux] * 4:
+                    raise AssertionError(f"{name} golden: aux paths {paths}")
+            st = make_sparse_tensor(fpad, cpad, nnz=n, device="cuda")
+            with torch.inference_mode():
+                got = model(st)[:n].float().cpu().numpy()
+            err = float(np.max(np.abs(got - want))
+                        / (np.max(np.abs(want)) + 1e-9))
+            label = f"{name} {aux}".strip()
+            errs[label] = err
+            log(f"golden {label} cr{float(g['cr'])} f32 ({n} voxels): rel "
+                f"err {err:.3g} (tol {GOLDEN_REL_TOL})")
+            if not np.isfinite(got).all() or not err < GOLDEN_REL_TOL:
+                raise AssertionError(f"{label} golden: rel err {err}")
+    res["seg_families_golden"] = errs
+
+
+def _kernel_ms(prof, stems, unit="scan"):
+    """Device ms per item of the hand kernels whose names hold one of
+    `stems` (`<stem>_kernel`), from a `_profile` result."""
+    return sum(k[f"ms_per_{unit}"] for k in prof.get("hand_kernels", [])
+               if any(f"{s}_kernel" in k["name"] for s in stems))
+
+
+def phase_seg_families_main(res, ctx, rounds=3):
+    """Each family built by `make_model` from its config at full width and
+    depth (cr 1.0), random weights from seed 0, batch 1 on `main`'s scans
+    at DEFAULT_CAPACITIES: launch counts around one pass of the scans,
+    scans/s (best of 3 rounds), one more pass profiled (device time, idle
+    share, the kernels' share) with the join-site check and the join
+    inputs' range."""
+    import torch
+    from link_tpu_torch.data.semantic_kitti import NUM_CLASSES, grid_extent
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.nn.modules import SparseConv3d
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import JOIN_INPUT_RANGE, JOIN_RANGE
+    from link_tpu_torch.utils.config import load_config
+
+    scans, fresh = ctx["scans"], ctx["fresh"]
+    ext = grid_extent(0.05, batch_size=1)
+    res["families"], ctx["families"] = {}, {}
+    for name in FAMILIES:
+        cfg = load_config(_family_config(name))
+        if tuple(cfg.model.capacities) != DEFAULT_CAPACITIES:
+            raise AssertionError(f"{name}: the config's capacities changed")
+        model = builder.make_model(
+            cfg, capacities=DEFAULT_CAPACITIES, dtype=FAMILY_DTYPE[name],
+            device="cuda", generator=torch.Generator().manual_seed(0),
+            grid_extent=ext)
+        model.eval()
+        with torch.inference_mode():
+            model(fresh(scans[0]))                             # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            outs = [model(fresh(st)) for st in scans]
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+            times = []
+            for _ in range(rounds):
+                inputs = [fresh(st) for st in scans]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for x in inputs:
+                    model(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        for st, out in zip(scans, outs):
+            if out.shape != (st.capacity, NUM_CLASSES):
+                raise AssertionError(f"{name}: logits {tuple(out.shape)}")
+            if not torch.isfinite(out[:int(st.nnz)].float()).all():
+                raise AssertionError(f"{name}: non-finite logits")
+
+        n = len(scans)
+        aux = _elk_aux_paths(model, ext) if name == "linkencoder" else None
+        want_join = FAMILY_PLANS + (
+            aux.count("sparse") + 4 if name == "linkencoder"  # + upsample_voxel
+            else SPVCNN_POINT_JOINS if name == "spvcnn" else 0)
+        want_conv = sum(1 for mod in model.modules()
+                        if isinstance(mod, SparseConv3d)
+                        and math.prod(mod.kernel_size) > 1)
+        scans_per_s = [n / t for t in times]
+        with torch.inference_mode():
+            inputs = [fresh(st) for st in scans]
+            prof = _profile(lambda: [model(x) for x in inputs], n,
+                            1e3 / max(scans_per_s), "scan",
+                            ranges=(JOIN_RANGE, JOIN_INPUT_RANGE))
+        _check_join_sites(prof, "scan", want_join)
+        # the new sites form their inputs in PyTorch before the join's
+        # range: once per upsample_voxel and per uncached point join
+        want_inputs = (4 if name == "linkencoder" else SPVCNN_POINT_JOINS
+                       if name == "spvcnn" else 0)
+        inputs_range = prof["ranges"][JOIN_INPUT_RANGE]
+        if inputs_range["sites"] != want_inputs:
+            raise AssertionError(f"{name}: {inputs_range['sites']} join-input "
+                                 f"ranges per scan, expected {want_inputs}")
+        busy = prof["device_busy_ms_per_scan"]
+        conv_ms = _kernel_ms(prof, ("gather_conv", "w_frag"))
+        join_ms = _kernel_ms(prof, ("sorted_join",))
+        fam = {"dtype": FAMILY_DTYPE[name], "scans_per_s": scans_per_s,
+               "launches_per_scan": {k: v / n for k, v in launches.items()},
+               "profile": prof, "gather_conv_ms_per_scan": conv_ms,
+               "gather_conv_share": conv_ms / busy if busy else None,
+               "sorted_join_ms_per_scan": join_ms,
+               "join_inputs_per_scan": inputs_range, "elk_aux_paths": aux,
+               "params": sum(p.numel() for p in model.parameters())}
+        res["families"][name] = fam
+        res[f"family_launches_{name}"] = launches
+        log(f"{name} {FAMILY_DTYPE[name]} cr1.0, {n} scans: launches per "
+            f"scan gather_conv {launches['gather_conv'] / n:.0f} (expected "
+            f"{want_conv}), sorted_join {launches['sorted_join'] / n:.0f} "
+            f"(expected {want_join}); scans/s per round "
+            f"{[round(v, 3) for v in scans_per_s]}; gather_conv "
+            f"{conv_ms:.3f} ms per scan, sorted_join {join_ms:.4f} ms"
+            + (f"; join inputs formed in PyTorch {inputs_range['device_ms']:.4f}"
+               f" ms in {inputs_range['launches']:.0f} launches"
+               if want_inputs else "")
+            + (f"; ELK aux paths by level {aux}" if aux else ""))
+        if (launches["gather_conv"] != n * want_conv
+                or launches["sorted_join"] != n * want_join):
+            raise AssertionError(f"{name}: launch counts {launches} differ "
+                                 f"from the expected {want_conv} convs and "
+                                 f"{want_join} joins per scan")
+        ctx["families"][name] = (cfg, model)
+
+
+def phase_seg_families_hold(res, ctx):
+    """Each family at cr 1.0 in float32 with the weights of seed 0, on
+    `main`'s scan 0: the card (kernels) against the CPU (plain twins)."""
+    import torch
+    from link_tpu_torch.data.semantic_kitti import grid_extent
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+
+    ext = grid_extent(0.05, batch_size=1)
+    scan = {dev: _scan_tensor(0, dev) for dev in ("cuda", "cpu")}
+    n = int(scan["cpu"].nnz)
+    out = {}
+    for name in FAMILIES:
+        cfg = ctx["families"][name][0]
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            model = builder.make_model(
+                cfg, capacities=DEFAULT_CAPACITIES, dtype="float32",
+                device=dev, generator=torch.Generator().manual_seed(0),
+                grid_extent=ext).eval()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits[dev] = model(scan[dev])[:n].cpu()
+            if dev == "cpu":
+                cpu_s = time.perf_counter() - t0
+        err = rel_err(logits["cuda"], logits["cpu"])
+        out[name] = {"rel_err": err, "cpu_s": cpu_s, "voxels": n}
+        log(f"hold {name} cr1.0 f32, card vs CPU on {n} voxels: rel err "
+            f"{err:.3g} (tol {GOLDEN_REL_TOL}); CPU forward {cpu_s:.1f} s")
+        if not torch.isfinite(logits["cuda"]).all() or not err < GOLDEN_REL_TOL:
+            raise AssertionError(f"{name}: card vs CPU rel err {err}")
+    res["seg_families_hold"] = out
+
+
+def phase_seg_families_eval(res, ctx):
+    """`link_tpu_torch.tools.seg_evaluate` on the card for each family: a
+    checkpoint of the seed-0 model of `seg_families_main`, the synthetic
+    val split, 2 scans, at the config's capacities x 1.6."""
+    import tempfile
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.tools import seg_evaluate
+    from link_tpu_torch.train.checkpoint import save_checkpoint
+    from link_tpu_torch.train.trainer import TrainState
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FAMILIES:
+            cfg, model = ctx["families"][name]
+            ckpt = save_checkpoint(
+                os.path.join(tmp, name), TrainState(model, builder.make_optimizer(
+                    cfg, model.parameters(), 0.0)), 0)
+            r = seg_evaluate.evaluate(seg_evaluate.parse_args(
+                [_family_config(name), ckpt, "--synthetic", "--limit", "2"]))
+            out[name] = {k: r[k] for k in ("miou", "ms_per_scan", "scans",
+                                           "overflow_scans", "overflow")}
+            log(f"seg_evaluate {name}: point-level mIoU {r['miou']:.4f} at "
+                f"random weights, ms per scan {[round(v, 1) for v in r['ms_per_scan']]}")
+            if r["scans"] != 2 or not 0 <= r["miou"] <= 1:
+                raise AssertionError(f"seg_evaluate {name}: {r}")
+    res["seg_families_eval"] = out
 
 
 # --------------------------------------------------------------------------
@@ -1778,10 +2094,12 @@ class ShapeRecorder:
     """Stands in for the kernels module as `link_tpu_torch.sparse.conv`
     sees it, during one run of a main path: every call reaches the kernel
     as before, and the arguments of the first `gather_conv` and
-    `gather_wgrad` call of each distinct shape and dtype are kept."""
+    `gather_wgrad` call of each distinct shape and dtype are kept, with the
+    number of `gather_conv` calls of each (`conv_calls`)."""
 
     def __init__(self):
         self.conv, self.wgrad = {}, {}
+        self.conv_calls = {}
 
     def __enter__(self):
         from link_tpu_torch.sparse import conv as sconv
@@ -1797,6 +2115,7 @@ class ShapeRecorder:
                 key = (tuple(feats.shape), tuple(idx.shape),
                        tuple(weight.shape), str(feats.dtype))
                 rec.conv.setdefault(key, (feats, idx, weight))
+                rec.conv_calls[key] = rec.conv_calls.get(key, 0) + 1
                 return real.gather_conv(feats, idx, weight)
 
             @staticmethod
@@ -1814,15 +2133,85 @@ class ShapeRecorder:
         return False
 
 
+class JoinRecorder:
+    """Records, during one run of a family's pass, the arguments of every
+    `sorted_join` call made inside the new join sites: `upsample_voxel`
+    (ELKEncoder) and `voxel_to_point` / `point_to_voxel` (SPVCNN). Each
+    site function is wrapped where the model calls it, and the kernels
+    module as `link_tpu_torch.sparse.coords` sees it records while a site
+    runs; every call still reaches the kernel."""
+
+    SITES = (("link_tpu_torch.models.linkencoder", "upsample_voxel"),
+             ("link_tpu_torch.models.spvcnn", "voxel_to_point"),
+             ("link_tpu_torch.models.spvcnn", "point_to_voxel"))
+
+    def __init__(self):
+        self.calls = []          # (site, args of sorted_join)
+        self._site = None
+
+    def __enter__(self):
+        import importlib
+        from link_tpu_torch.sparse import coords as C
+        rec, real = self, C.kernels
+        self._patched = [(C, "kernels", real)]
+
+        class View:
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+            @staticmethod
+            def sorted_join(t_hi, t_lo, perm, base, offsets=None, mult=None,
+                            mode="exact"):
+                if rec._site is not None:
+                    rec.calls.append((rec._site, (t_hi, t_lo, perm, base,
+                                                  offsets, mult, mode)))
+                return real.sorted_join(t_hi, t_lo, perm, base, offsets,
+                                        mult, mode)
+
+        C.kernels = View()
+        for mod_name, fn_name in self.SITES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, fn_name)
+            self._patched.append((mod, fn_name, fn))
+
+            def site(st, other, *a, _fn=fn, _name=fn_name, **kw):
+                rec._site = f"{_name} stride {st.stride[0]}"
+                try:
+                    return _fn(st, other, *a, **kw)
+                finally:
+                    rec._site = None
+
+            setattr(mod, fn_name, site)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, value in self._patched:
+            setattr(mod, name, value)
+        return False
+
+
+def _unsorted_warp_share(kernels, base) -> float:
+    """Share of `sorted_join`'s warps (32 consecutive base rows, one per
+    lane) whose rows' keys are out of order, so that the warp searches the
+    whole table per lane instead of bracketing (csrc/sorted_join.cu)."""
+    hi, lo = kernels.pack_coords(base)
+    key = kernels.key64(hi, lo)
+    w = key[:key.shape[0] // 32 * 32].view(-1, 32)
+    return float((w[:, 1:] < w[:, :-1]).any(1).float().mean())
+
+
 def phase_path_shapes(res, ctx, iters=10):
     """`gather_conv` and `gather_wgrad` against their twins, bit-equal over
     two runs and timed, at every distinct shape that one more seg pass, det
     pass and training step give them (their inputs as the paths make them;
     recorded here, so that the earlier phases' counts, times and peak memory
     are the paths' own), and each work list of the step against its plain
-    twin."""
+    twin. Then one more pass of each seg family: `gather_conv` at every
+    (K, Ci, Co, dtype) that no earlier path gives it, and `sorted_join` at
+    every call of the families' new join sites, exactly."""
     import torch
     from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import CoordTable
     model, scans, fresh = ctx["model"], ctx["scans"], ctx["fresh"]
     recorders = {}
     with torch.inference_mode(), ShapeRecorder() as recorders["seg"]:
@@ -1831,6 +2220,11 @@ def phase_path_shapes(res, ctx, iters=10):
         ctx["pred"].forward(ctx["det_batches"][0])
     with ShapeRecorder() as recorders["train"]:
         ctx["train_step"](ctx["train_next"] + 1)
+    fam_conv, fam_join = {}, {}
+    for name, (_, fmodel) in ctx["families"].items():
+        with (torch.inference_mode(), ShapeRecorder() as fam_conv[name],
+              JoinRecorder() as fam_join[name]):
+            fmodel(fresh(scans[0]))
     torch.cuda.synchronize()
     conv_cases, wgrad_cases = [], []
     for path, rec in recorders.items():
@@ -1854,6 +2248,45 @@ def phase_path_shapes(res, ctx, iters=10):
         f"{len(wgrad_cases)} distinct shapes of the three paths, each within "
         "its tolerance and bit-equal over two runs; "
         f"{len(CAPTURE_FAILED)} failed graph captures so far")
+
+    def kco(key):                     # (K, Ci, Co, dtype) of a recorder key
+        return (key[1][0], key[0][1], key[2][-1], key[3])
+
+    seen = {kco(k) for rec in recorders.values() for k in rec.conv}
+    fam_cases = []
+    for name, rec in fam_conv.items():
+        calls = {}
+        for key, n in rec.conv_calls.items():
+            calls[kco(key)] = calls.get(kco(key), 0) + n
+        for key, (feats, idx, weight) in rec.conv.items():
+            if kco(key) in seen:
+                continue
+            seen.add(kco(key))
+            case = _conv_case(kernels, feats, idx, weight, iters, role=name)
+            case["launches_per_scan"] = calls[kco(key)]
+            fam_cases.append(case)
+    join_cases = []
+    for name, rec in fam_join.items():
+        for site, (hi, lo, perm, base, offs, mult, mode) in rec.calls:
+            case = _join_case(kernels, CoordTable(hi, lo, perm), base, offs,
+                              mode, iters, mult=mult, role=f"{name} {site}")
+            case["unsorted_warp_share"] = _unsorted_warp_share(kernels, base)
+            log(f"  {case['role']}: {case['unsorted_warp_share']:.3f} of its "
+                "warps hold base rows out of key order")
+            join_cases.append(case)
+    sites = sorted(c["role"] for c in join_cases)
+    want = sorted([f"linkencoder upsample_voxel stride {s}"
+                   for s in (2, 4, 8, 16)]
+                  + [f"spvcnn voxel_to_point stride {s}" for s in (1, 4, 16)]
+                  + [f"spvcnn point_to_voxel stride {s}" for s in (4, 16)])
+    res["family_conv_cases"] = fam_cases
+    res["family_join_cases"] = join_cases
+    log(f"family shapes: gather_conv at {len(fam_cases)} new (K, Ci, Co, "
+        f"dtype), each within its tolerance and bit-equal over two runs; "
+        f"sorted_join at the {len(join_cases)} new join sites of a pass, "
+        "each equal to its twin")
+    if sites != want:
+        raise AssertionError(f"family join sites {sites}, expected {want}")
 
 
 # --------------------------------------------------------------------------
@@ -1915,15 +2348,17 @@ KERNEL_CASE = {
     # thresh 0.2, cap 83
     "rotated_nms": lambda res: res["rotated_nms_case"],
 }
-MAIN_PATHS = {"seg": "launches", "det": "det_launches",
-              "det_serve": "det_serve_launches",
+MAIN_PATHS = {"seg": "launches",
+              **{f"seg_{name}": f"family_launches_{name}" for name in FAMILIES},
+              "det": "det_launches", "det_serve": "det_serve_launches",
               "train": "train_launches", "probes": "probe_launches"}
 
 
 def kernels_line(res):
     """One entry per kernel of `kernels.KERNELS` (name, source and what it
     replaces come from that registry): launches summed over the main paths'
-    counted runs (one seg pass of 4 scans, one det pass of 2 frames, one
+    counted runs (one seg pass of 4 scans, one pass of the same 4 scans of
+    each other seg family, one det pass of 2 frames, one
     device-NMS `predict` of the 2 frames, one train step, one run of the
     probe tool), and the error, times and bound
     of `KERNEL_CASE`. A kernel without a case or without a launch on any
@@ -1972,7 +2407,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
     ctx = {}
     for phase in (phase_build, phase_kernels, phase_golden, phase_main,
-                  phase_profile, phase_det_kernels, phase_det_golden,
+                  phase_profile, phase_seg_families_golden,
+                  phase_seg_families_main, phase_seg_families_hold,
+                  phase_seg_families_eval, phase_det_kernels, phase_det_golden,
                   phase_det_elk_golden, phase_det_main, phase_det_profile,
                   phase_det_nms_kernels, phase_det_serve,
                   phase_train_kernels, phase_train_grad, phase_train_golden,

@@ -83,3 +83,24 @@ def to_sparse_tensor(batch: Dict[str, np.ndarray], device="cuda",
     return make_sparse_tensor(batch["feats"], batch["coords"],
                               nnz=batch["nnz"], base_sorted=True,
                               grid_extent=grid_extent, device=device)
+
+
+def level_unique_counts(coords: np.ndarray, levels: int) -> List[int]:
+    """Exact unique-voxel counts at strides 1, 2, 4, ... (floor-division
+    lattice, as spdownsample's fast path). coords (N, 4) with the batch
+    column last. A copy of `link_tpu/data/collate.py:level_unique_counts`."""
+    out = []
+    c = coords.astype(np.int64)
+    for lvl in range(levels):
+        s = 1 << lvl
+        d = np.unique(np.concatenate([c[:, :3] // s, c[:, 3:]], 1), axis=0)
+        out.append(len(d))
+    return out
+
+
+def audit_capacities(coords: np.ndarray, capacities) -> List[int]:
+    """Per-level voxel-overflow counts of one batch against a capacity
+    schedule. The device path (`coords.unique_coords`) clamps silently;
+    this host-side audit makes the drops observable."""
+    counts = level_unique_counts(coords, len(capacities))
+    return [max(0, n - int(cap)) for n, cap in zip(counts, capacities)]

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from ..nn.modules import SparseBatchNorm, SparseConv3d, SparseReLU
-from ..sparse.tensor import SparseTensor
+from ..sparse.tensor import SparseTensor, cat
 
 
 class BasicConvolutionBlock(nn.Module):
@@ -74,3 +74,28 @@ class ResidualBlock(nn.Module):
         y = self.net(x)
         sc = self.downsample(x)
         return y.replace(feats=torch.relu(y.feats + sc.feats))
+
+
+def add_decoder(module: nn.Module, cs, device=None,
+                generator: Optional[torch.Generator] = None) -> None:
+    """Register the U-Net decoder of ELKUNet, MinkUNet and SPVCNN on
+    `module` under the reference's names: up{l} = [transposed conv,
+    (two residual blocks over the concat with the skip)], for the
+    9-entry width plan `cs`."""
+    kw = dict(device=device, generator=generator)
+    # (input width, output width, skip width) per level
+    for lvl, (cin, cout, skip) in enumerate(
+            ((cs[4], cs[5], cs[3]), (cs[5], cs[6], cs[2]),
+             (cs[6], cs[7], cs[1]), (cs[7], cs[8], cs[0])), start=1):
+        module.add_module(f"up{lvl}", nn.ModuleList([
+            BasicDeconvolutionBlock(cin, cout, ks=2, stride=2, **kw),
+            nn.Sequential(ResidualBlock(cout + skip, cout, **kw),
+                          ResidualBlock(cout, cout, **kw))]))
+
+
+def decoder_level(module: nn.Module, lvl: int, y: SparseTensor,
+                  skip: SparseTensor) -> SparseTensor:
+    """Decoder level `lvl` of `add_decoder`: the transposed conv, the
+    concat with the skip, the two residual blocks."""
+    deconv, res = getattr(module, f"up{lvl}")
+    return res(cat([deconv(y), skip]))

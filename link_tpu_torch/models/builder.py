@@ -10,25 +10,48 @@ import torch
 
 from ..train import schedules
 from ..train.trainer import make_sgd
+from .linkencoder import ELKEncoder
 from .linkunet import DEFAULT_CAPACITIES, ELKUNet
+from .minkunet import MinkUNet
+from .spvcnn import SPVCNN
 
 
 def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
                dtype: str = "float32", device="cuda",
                generator: Optional[torch.Generator] = None,
                grid_extent=None) -> torch.nn.Module:
+    """The config's seg model. `grid_extent` reaches the models with ELK
+    blocks (their dense aux path); SPVCNN runs float32 only, as the JAX
+    model, and its dropout is seeded from `generator`'s seed."""
     m = cfg.model
     caps = tuple(capacities or m.get("capacities", DEFAULT_CAPACITIES))
+    num_classes = cfg.data.num_classes
+    cr = m.get("cr", 1.0)
+    kw = dict(capacities=caps, device=device, generator=generator)
     name = m.name
     if name == "linkunet":
-        return ELKUNet(num_classes=cfg.data.num_classes, cr=m.get("cr", 1.0),
-                       r=m.r, s=m.s, groups=m.groups, baseop=m.base_op,
-                       capacities=caps, dtype=dtype, grid_extent=grid_extent,
-                       device=device, generator=generator)
-    if name in ("linkencoder", "minkunet", "spvcnn"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: it comes with the slice of "
-            "the other seg families (ELKEncoder, MinkUNet, SPVCNN)")
+        return ELKUNet(num_classes=num_classes, cr=cr, r=m.r, s=m.s,
+                       groups=m.groups, baseop=m.base_op, dtype=dtype,
+                       grid_extent=grid_extent, **kw)
+    if name == "linkencoder":
+        return ELKEncoder(num_classes=num_classes, cr=cr, r=m.r, s=m.s,
+                          groups=m.groups, baseop=m.base_op, dtype=dtype,
+                          grid_extent=grid_extent, **kw)
+    if name == "minkunet":
+        # the default (64,) * 9 is the reference's actual plan
+        # (minkunet.py:98); model.channels selects another, e.g. the stock
+        # SPVNAS [32, 32, 64, 128, ...]
+        if "channels" in m:
+            kw["channels"] = tuple(int(c) for c in m.channels)
+        return MinkUNet(num_classes=num_classes, cr=cr, dtype=dtype, **kw)
+    if name == "spvcnn":
+        if dtype != "float32":
+            raise ValueError("SPVCNN runs float32 only")
+        return SPVCNN(num_classes=num_classes, cr=cr,
+                      pres=cfg.dataset.voxel_size,
+                      vres=cfg.dataset.voxel_size,
+                      dropout_seed=(None if generator is None
+                                    else generator.initial_seed()), **kw)
     raise NotImplementedError(name)
 
 

@@ -9,7 +9,9 @@ modulation -> block pre-aggregation (voxel_to_aux) -> r^3 window sum
 
 `det_grouping=True` reproduces the detection TSELKBlock's channel grouping:
 the positional Linear has full width (3, inc) but only its first inc/2
-columns are used, tiled twice.
+columns are used, tiled twice. `normalize_coords=True` is the encoder-only
+model's variant (reference linkencoder.py:165): under the cos_x basis the
+positional map reads coords / stride.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from ..sparse.tensor import SparseTensor
 class ELKBlock(nn.Module):
 
     def __init__(self, inc: int, aux_capacity: int, groups: int = 1,
-                 baseop: str = "cos_x", det_grouping: bool = False, device=None,
+                 baseop: str = "cos_x", normalize_coords: bool = False,
+                 det_grouping: bool = False, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if baseop not in ("cos", "sin", "cos_x"):
@@ -38,6 +41,7 @@ class ELKBlock(nn.Module):
         self.aux_capacity = aux_capacity
         self.groups = groups
         self.baseop = baseop
+        self.normalize_coords = normalize_coords
         self.det_grouping = det_grouping
         cg = inc if det_grouping else inc // groups
         self.pre_mix = nn.Sequential(
@@ -58,7 +62,10 @@ class ELKBlock(nn.Module):
         f_input = self.pre_mix(st.feats)
         local = self.local_mix(st)
 
-        pw = self.pos_weight(st.coords[:, :3].to(torch.float32))
+        c3 = st.coords[:, :3].to(torch.float32)
+        if self.baseop == "cos_x" and self.normalize_coords:
+            c3 = c3 / st.stride[0]
+        pw = self.pos_weight(c3)
         if self.det_grouping:
             half = pw[..., :self.inc // 2]
             pw = torch.cat([half, half], dim=-1)

@@ -8,12 +8,15 @@ PyTorch counterpart of `link_tpu/ops/elk.py`:
     through `join_taps` (the `sorted_join` kernel); the window sum is
     a plain gather-sum;
   * elk_aux_window_dense: the same result on a dense aux grid (odd r only),
-    gated by use_dense_aux.
+    gated by use_dense_aux;
+  * upsample_voxel: broadcast a coarse level's feats onto finer coords
+    through each fine voxel's ancestor, one exact join (`sorted_join`).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..sparse import coords as coordlib
 from ..sparse import ops as spops
@@ -139,3 +142,25 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
                        torch.full_like(idx_query, new_feat.shape[0])).long()
     ext = torch.cat([new_feat, new_feat.new_zeros((1, new_feat.shape[1]))])
     return x.replace(feats=ext.index_select(0, safe))   # see spdevoxelize
+
+
+def upsample_voxel(x: SparseTensor, ref_x: SparseTensor) -> SparseTensor:
+    """Nearest-ancestor broadcast of coarse feats onto fine coords
+    (utils.py:327-340): both coord sets divided by the coarse stride, one
+    exact join of the divided fine rows against the divided coarse table,
+    and a gather with a zero row for misses. The result carries ref_x's
+    coords and coord maps."""
+    s = x.stride[0]
+    # the coarse coords are multiples of s, so dividing them keeps key order
+    # and the table skips its sort when they were sorted; the fine side's
+    # division can invert the order across z / y boundaries, which the
+    # join takes as it comes
+    with record_function(coordlib.JOIN_INPUT_RANGE):
+        coarse = _div_coords(x.coords, s)
+        fine = _div_coords(ref_x.coords, s)
+    table = coordlib.build_table(coarse, assume_sorted=x.coords_sorted)
+    idx = table.query(fine)
+    n = x.capacity
+    safe = torch.where(idx >= 0, idx, torch.full_like(idx, n)).long()
+    ext = torch.cat([x.feats, x.feats.new_zeros((1, x.feats.shape[1]))])
+    return ref_x.replace(feats=ext.index_select(0, safe))

@@ -39,6 +39,12 @@ INVALID_COORD = -(2**20)
 # and the window form's pinning and slots (read by chip_smoke.py and
 # link_tpu_torch/tools/join_sites.py)
 JOIN_RANGE = "sparse/join_site"
+# profiler range around the PyTorch operations that form a join's inputs
+# outside the kernel, where the kernel cannot form them from base rows and
+# offsets: the floored base rows of the point joins (ops/point.py) and both
+# coord sets divided by upsample_voxel's stride (ops/elk.py). A join site
+# there is this range and the JOIN_RANGE after it (read by chip_smoke.py)
+JOIN_INPUT_RANGE = "sparse/join_inputs"
 
 
 def make_ntuple(x: Union[int, Sequence[int]], ndim: int = 3) -> Tuple[int, ...]:

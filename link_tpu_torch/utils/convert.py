@@ -2,10 +2,15 @@
 
 The port's parameter names are the reference torch `state_dict` keys, so a
 reference checkpoint (or a golden `*_state.npz`) loads into the port's
-models with `load_state_dict` directly. `from_jax_params` maps the JAX
-ELKUNet's flax `params` / `batch_stats` trees (numpy arrays) onto such a
-dict, the inverse of `link_tpu/utils/torch_import.py:translate_elkunet`;
-`from_jax_det_params` does the same for the JAX VoxelNet, the inverse of
+models with `load_state_dict` directly (`load_reference_state_dict` drops
+the keys of modules the reference defines and never calls).
+`from_jax_params` maps the JAX ELKUNet's flax `params` / `batch_stats`
+trees (numpy arrays) onto such a dict, the inverse of
+`link_tpu/utils/torch_import.py:translate_elkunet`; `from_jax_elkencoder`,
+`from_jax_minkunet` and `from_jax_spvcnn` do the same for the other seg
+families, the inverses of `translate_elkencoder`, `translate_minkunet` and
+`translate_spvcnn`; `from_jax_det_params` maps the JAX VoxelNet's, the
+inverse of
 `link_tpu/utils/torch_import_det.py:translate_voxelnet` (spconv weight
 layouts, Linear and Conv2d transposes, the ConvTranspose spatial flip).
 `to_jax_flat` goes the other way for the ELKUNet: a port `state_dict`, or
@@ -26,75 +31,165 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def from_jax_params(params: Dict[str, Any],
-                    batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ELKUNet {params, batch_stats} -> reference-keyed state_dict."""
-    sd: Dict[str, torch.Tensor] = {}
+class _StateDictBuilder:
+    """Builds a reference-keyed state_dict from flax {params, batch_stats}
+    subtrees: one method per module kind of the seg models."""
 
-    def bn(prefix, p, s):
+    def __init__(self):
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def bn(self, prefix, p, s):
+        sd = self.sd
         sd[f"{prefix}.weight"] = _t(p["scale"])
         sd[f"{prefix}.bias"] = _t(p["bias"])
         sd[f"{prefix}.running_mean"] = _t(s["mean"])
         sd[f"{prefix}.running_var"] = _t(s["var"])
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
-    def conv_bn_block(prefix, p, s):
-        sd[f"{prefix}.net.0.kernel"] = _t(p["SparseConv3d_0"]["kernel"])
-        bn(f"{prefix}.net.1", p["SparseBatchNorm_0"], s["SparseBatchNorm_0"])
+    def linear(self, prefix, p):
+        self.sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            self.sd[f"{prefix}.bias"] = _t(p["bias"])
 
-    def res_block(prefix, p, s):
-        conv_bn_block(prefix, p, s)
-        sd[f"{prefix}.net.3.kernel"] = _t(p["SparseConv3d_1"]["kernel"])
-        bn(f"{prefix}.net.4", p["SparseBatchNorm_1"], s["SparseBatchNorm_1"])
+    def conv_bn_block(self, prefix, p, s):
+        self.sd[f"{prefix}.net.0.kernel"] = _t(p["SparseConv3d_0"]["kernel"])
+        self.bn(f"{prefix}.net.1", p["SparseBatchNorm_0"],
+                s["SparseBatchNorm_0"])
+
+    def res_block(self, prefix, p, s):
+        self.conv_bn_block(prefix, p, s)
+        self.sd[f"{prefix}.net.3.kernel"] = _t(p["SparseConv3d_1"]["kernel"])
+        self.bn(f"{prefix}.net.4", p["SparseBatchNorm_1"],
+                s["SparseBatchNorm_1"])
         if "SparseConv3d_2" in p:
-            sd[f"{prefix}.downsample.0.kernel"] = _t(
+            self.sd[f"{prefix}.downsample.0.kernel"] = _t(
                 p["SparseConv3d_2"]["kernel"])
-            bn(f"{prefix}.downsample.1", p["SparseBatchNorm_2"],
-               s["SparseBatchNorm_2"])
+            self.bn(f"{prefix}.downsample.1", p["SparseBatchNorm_2"],
+                    s["SparseBatchNorm_2"])
 
-    sd["stem.0.kernel"] = _t(params["stem0"]["kernel"])
-    bn("stem.1", params["stem0_bn"], batch_stats["stem0_bn"])
-    sd["stem.3.kernel"] = _t(params["stem1"]["kernel"])
-    bn("stem.4", params["stem1_bn"], batch_stats["stem1_bn"])
+    def stem(self, params, stats):
+        self.sd["stem.0.kernel"] = _t(params["stem0"]["kernel"])
+        self.bn("stem.1", params["stem0_bn"], stats["stem0_bn"])
+        self.sd["stem.3.kernel"] = _t(params["stem1"]["kernel"])
+        self.bn("stem.4", params["stem1_bn"], stats["stem1_bn"])
 
-    for lvl in range(1, 5):
-        conv_bn_block(f"down{lvl}.0", params[f"down{lvl}"],
-                      batch_stats[f"down{lvl}"])
-        for bi in range(2):
-            res_block(f"stage{lvl}.{bi}", params[f"stage{lvl}_{bi}"],
-                      batch_stats[f"stage{lvl}_{bi}"])
-        sd[f"stage{lvl}_tail.0.kernel"] = _t(
-            params[f"stage{lvl}_tail"]["kernel"])
-        bn(f"stage{lvl}_tail.1", params[f"stage{lvl}_tail_bn"],
-           batch_stats[f"stage{lvl}_tail_bn"])
+    def elk_encoder(self, params, stats):
+        """The stem and the 4 ELK levels of ELKUNet / ELKEncoder."""
+        sd = self.sd
+        self.stem(params, stats)
+        for lvl in range(1, 5):
+            self.conv_bn_block(f"down{lvl}.0", params[f"down{lvl}"],
+                               stats[f"down{lvl}"])
+            for bi in range(2):
+                self.res_block(f"stage{lvl}.{bi}", params[f"stage{lvl}_{bi}"],
+                               stats[f"stage{lvl}_{bi}"])
+            sd[f"stage{lvl}_tail.0.kernel"] = _t(
+                params[f"stage{lvl}_tail"]["kernel"])
+            self.bn(f"stage{lvl}_tail.1", params[f"stage{lvl}_tail_bn"],
+                    stats[f"stage{lvl}_tail_bn"])
 
-        ep = params[f"elk{lvl}"]
-        pre = f"elk{lvl}"
-        sd[f"{pre}.pre_mix.0.weight"] = _t(np.asarray(ep["pre_mix"]["kernel"]).T)
-        sd[f"{pre}.pre_mix.1.weight"] = _t(ep["pre_mix_norm"]["scale"])
-        sd[f"{pre}.pre_mix.1.bias"] = _t(ep["pre_mix_norm"]["bias"])
-        sd[f"{pre}.local_mix.0.kernel"] = _t(ep["local_mix"]["kernel"])
-        sd[f"{pre}.pos_weight.0.weight"] = _t(
-            np.asarray(ep["pos_weight"]["kernel"]).T)
-        if "alpha" in ep:
-            sd[f"{pre}.alpha"] = _t(ep["alpha"])
-        for name in ("norm", "norm_local"):
-            sd[f"{pre}.{name}.weight"] = _t(ep[name]["scale"])
-            sd[f"{pre}.{name}.bias"] = _t(ep[name]["bias"])
-        sd[f"elk{lvl}_tail.0.kernel"] = _t(params[f"elk{lvl}_tail"]["kernel"])
-        bn(f"elk{lvl}_tail.1", params[f"elk{lvl}_tail_bn"],
-           batch_stats[f"elk{lvl}_tail_bn"])
+            ep = params[f"elk{lvl}"]
+            pre = f"elk{lvl}"
+            self.linear(f"{pre}.pre_mix.0", ep["pre_mix"])
+            sd[f"{pre}.pre_mix.1.weight"] = _t(ep["pre_mix_norm"]["scale"])
+            sd[f"{pre}.pre_mix.1.bias"] = _t(ep["pre_mix_norm"]["bias"])
+            sd[f"{pre}.local_mix.0.kernel"] = _t(ep["local_mix"]["kernel"])
+            self.linear(f"{pre}.pos_weight.0", ep["pos_weight"])
+            if "alpha" in ep:
+                sd[f"{pre}.alpha"] = _t(ep["alpha"])
+            for name in ("norm", "norm_local"):
+                sd[f"{pre}.{name}.weight"] = _t(ep[name]["scale"])
+                sd[f"{pre}.{name}.bias"] = _t(ep[name]["bias"])
+            sd[f"elk{lvl}_tail.0.kernel"] = _t(
+                params[f"elk{lvl}_tail"]["kernel"])
+            self.bn(f"elk{lvl}_tail.1", params[f"elk{lvl}_tail_bn"],
+                    stats[f"elk{lvl}_tail_bn"])
 
-    for lvl in range(1, 5):
-        conv_bn_block(f"up{lvl}.0", params[f"up{lvl}_deconv"],
-                      batch_stats[f"up{lvl}_deconv"])
-        for bi in range(2):
-            res_block(f"up{lvl}.1.{bi}", params[f"up{lvl}_res{bi}"],
-                      batch_stats[f"up{lvl}_res{bi}"])
+    def decoder(self, params, stats):
+        for lvl in range(1, 5):
+            self.conv_bn_block(f"up{lvl}.0", params[f"up{lvl}_deconv"],
+                               stats[f"up{lvl}_deconv"])
+            for bi in range(2):
+                self.res_block(f"up{lvl}.1.{bi}", params[f"up{lvl}_res{bi}"],
+                               stats[f"up{lvl}_res{bi}"])
 
-    sd["classifier.0.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
-    sd["classifier.0.bias"] = _t(params["classifier"]["bias"])
-    return sd
+    def unet_body(self, params, stats):
+        """MinkUNet / SPVCNN: stage{l} = (down, res, res), then the
+        decoder (link_tpu/utils/torch_import.py:_unet_body_sd)."""
+        self.stem(params, stats)
+        for lvl in range(1, 5):
+            self.conv_bn_block(f"stage{lvl}.0", params[f"down{lvl}"],
+                               stats[f"down{lvl}"])
+            for bi in range(2):
+                self.res_block(f"stage{lvl}.{bi + 1}",
+                               params[f"stage{lvl}_{bi}"],
+                               stats[f"stage{lvl}_{bi}"])
+        self.decoder(params, stats)
+
+
+def from_jax_params(params: Dict[str, Any],
+                    batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ELKUNet {params, batch_stats} -> reference-keyed state_dict."""
+    b = _StateDictBuilder()
+    b.elk_encoder(params, batch_stats)
+    b.decoder(params, batch_stats)
+    b.linear("classifier.0", params["classifier"])
+    return b.sd
+
+
+def from_jax_elkencoder(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """flax ELKEncoder -> the port's state_dict (the reference's keys
+    without its unused decoder): the inverse of
+    `link_tpu/utils/torch_import.py:translate_elkencoder`. The grouped
+    heads' (g, Ci/g, Co/g) kernels become Conv1d (Co, Ci/g, 1) weights."""
+    b = _StateDictBuilder()
+    b.elk_encoder(params, batch_stats)
+    for head, key in (("head0", "classifier.0"), ("head1", "classifier.2")):
+        kern = np.asarray(params[head]["kernel"])            # (g, ci, co/g)
+        g, ci, cog = kern.shape
+        b.sd[f"{key}.weight"] = _t(
+            kern.transpose(0, 2, 1).reshape(g * cog, ci)[:, :, None])
+        b.sd[f"{key}.bias"] = _t(np.asarray(params[head]["bias"]).reshape(-1))
+    return b.sd
+
+
+def from_jax_minkunet(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """flax MinkUNet -> the port's state_dict: the inverse of
+    `translate_minkunet`."""
+    b = _StateDictBuilder()
+    b.unet_body(params, batch_stats)
+    b.linear("classifier.0", params["classifier"])
+    return b.sd
+
+
+def from_jax_spvcnn(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """flax SPVCNN -> the port's state_dict: the inverse of
+    `translate_spvcnn` (the U-Net body, the three point MLPs)."""
+    b = _StateDictBuilder()
+    b.unet_body(params, batch_stats)
+    for i in range(3):
+        p, s = params[f"pt{i}"], batch_stats[f"pt{i}"]
+        b.linear(f"point_transforms.{i}.0", p["Linear_0"])
+        b.bn(f"point_transforms.{i}.1", p["SparseBatchNorm_0"],
+             s["SparseBatchNorm_0"])
+    b.linear("classifier.0", params["classifier"])
+    return b.sd
+
+
+def load_reference_state_dict(model: torch.nn.Module,
+                              sd: Dict[str, torch.Tensor]) -> None:
+    """Load a reference state_dict into a port model with `strict=True`,
+    after dropping the keys of the modules the reference defines but its
+    forward never calls, which the port leaves out: the prefixes the model
+    class names in `UNUSED_REFERENCE_KEYS` (ELKEncoder's decoder, MinkUNet's
+    point transforms). Every other key must match."""
+    unused = tuple(getattr(model, "UNUSED_REFERENCE_KEYS", ()))
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if not (unused and k.startswith(unused))},
+                          strict=True)
 
 
 _BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),

@@ -20,7 +20,10 @@ from link_tpu.data import loader as jloader
 from link_tpu.utils import config as jconfig
 from link_tpu_torch.data import loader as tloader
 from link_tpu_torch.models import builder
+from link_tpu_torch.models.linkencoder import ELKEncoder
 from link_tpu_torch.models.linkunet import ELKUNet
+from link_tpu_torch.models.minkunet import MinkUNet
+from link_tpu_torch.models.spvcnn import SPVCNN
 from link_tpu_torch.ops import kernels
 from link_tpu_torch.tools import probe_gather
 from link_tpu_torch.train import checkpoint as ckpt
@@ -149,10 +152,18 @@ def test_builder_makes_the_recipe():
     g = opt.param_groups[0]
     assert isinstance(opt, torch.optim.SGD) and g["nesterov"]
     assert (g["lr"], g["momentum"], g["weight_decay"]) == (0.24, 0.9, 1e-4)
-    for name in ("minkunet", "spvcnn", "linkencoder"):
-        cfg.model.name = name
-        with pytest.raises(NotImplementedError, match="not ported"):
-            builder.make_model(cfg, device="cpu")
+    # every seg family builds from its own config; SPVCNN refuses bfloat16
+    for name, cls in (("minkunet", MinkUNet), ("linkencoder", ELKEncoder),
+                      ("spvcnn", SPVCNN)):
+        fcfg = tconfig.load_config(CONFIG.replace("linkunet", name),
+                                   ["model.cr=0.125"])
+        assert isinstance(builder.make_model(fcfg, capacities=(64,) * 5,
+                                             device="cpu"), cls)
+    with pytest.raises(ValueError, match="float32 only"):
+        builder.make_model(fcfg, dtype="bfloat16", device="cpu")
+    cfg.model.name = "pointnet"
+    with pytest.raises(NotImplementedError):
+        builder.make_model(cfg, device="cpu")
 
 
 def test_loader_copies_match_the_jax_package():
