@@ -137,7 +137,16 @@ Phases, in order (any failure raises and the script exits non-zero):
                  gather; then 6 interleaved readings (kernel, library,
                  library, kernel, ...) of the one-hot probe's shapes (4c)
                  against `x[idx]` and of the empty launch against `clone`,
-                 with medians and spreads.
+                 with medians and spreads; then, outside the counted run,
+                 the edges of the two probe kernels' work layouts
+                 (`Probes.edges`: slabs above one block's shared memory,
+                 of no whole number of stages, out_rows = G, fewer and far
+                 more slabs than the grid's blocks, offsets -1 and N - G +
+                 1;
+                 rows of 2 to 1,024 B, 3 vectors a row, Q = 1 and 1,001,
+                 indices >= N, rows of 5-6 vectors at Q = 1.5-2 million
+                 for the kernel of 4 items a lane), each bit-equal against
+                 its twin.
 
 A kernel, twin or library call is timed as the mean over the replay of a
 CUDA graph of back-to-back calls, so that it reads the card's time and not
@@ -160,6 +169,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -243,9 +253,13 @@ def phase_build(res, ctx):
     logs = kernels.build_kernels()
     res["build_s"] = time.perf_counter() - t0
     for src, text in logs.items():
+        entry = ""
         for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
             if "registers" in line or "spill" in line or "smem" in line:
-                log(f"{src}: {line.strip()}")
+                log(f"{src}: {entry}: {line.strip()}")
     log(f"build: {res['build_s']:.1f} s ({len(logs)} sources compiled)")
 
 
@@ -2313,6 +2327,10 @@ def phase_probes(res, ctx):
     if min(res["probe_launches"][k] for k in
            ("probe_row_gather", "probe_slab_copy", "probe_empty")) == 0:
         raise AssertionError("a probe kernel was not launched")
+    # the kernels' edges against their twins, after the counted run
+    edges = probes.edges()
+    res["probe_edges"] = edges
+    log(f"probe edges: {len(edges)} cases, each bit-equal against its twin")
 
 
 def _probe_case(res, kernel, **want):
@@ -2340,7 +2358,7 @@ KERNEL_CASE = {
     "probe_row_gather": lambda res: _probe_case(
         res, "probe_row_gather", letter="P", n=169984, row_bytes=256,
         q=27 * 169984),
-    # 512 slabs of 512 rows of 256 B (128 KB of shared memory each)
+    # 512 slabs of 512 rows of 256 B (128 KB each, in stage-sized chunks)
     "probe_slab_copy": lambda res: _probe_case(
         res, "probe_slab_copy", letter="D", g=512),
     "probe_empty": lambda res: _probe_case(res, "probe_empty"),

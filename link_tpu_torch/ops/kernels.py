@@ -757,7 +757,6 @@ _kernel(gather_wgrad, "gather_wgrad.cu",
 # probes
 
 _PROBE_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
-SLAB_MAX_BYTES = 232448     # shared memory one block can use on the H100
 
 
 def probe_row_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -819,13 +818,14 @@ def probe_slab_copy_plain(x: torch.Tensor, offs: torch.Tensor, g: int,
 
 def probe_slab_copy(x: torch.Tensor, offs: torch.Tensor, g: int,
                     out_rows: int = 0) -> torch.Tensor:
-    """Copy the S slabs x[offs[s]:offs[s] + g] through shared memory, one
-    block per slab. x (N, C) float32 or int32 with C * 4 a multiple of 16
-    bytes, offs (S,) int32, g rows per slab (g * C * 4 bytes at most
-    SLAB_MAX_BYTES). out_rows == 0 (slab mode): returns (S,), the first
-    element of each slab. out_rows > 0 (window mode, <= g): returns
-    (S * out_rows, C), the first out_rows rows of each slab. A slab that
-    leaves the table reads as zeros. The copy is exact."""
+    """Stage the S slabs x[offs[s]:offs[s] + g] in full through shared
+    memory (TMA bulk copies into a ring of stages; a slab of any size, cut
+    into chunks of one stage). x (N, C) float32 or int32 with C * 4 a
+    multiple of 16 bytes, offs (S,) int32, g rows per slab. out_rows == 0
+    (slab mode): returns (S,), the first element of each slab. out_rows > 0
+    (window mode, <= g): returns (S * out_rows, C), the first out_rows rows
+    of each slab. A slab that leaves the table reads as zeros. The copy is
+    exact."""
     if not 0 <= out_rows <= g:
         raise ValueError(f"probe_slab_copy: out_rows {out_rows} for g={g}")
     if _on_cpu(x, offs):
@@ -837,10 +837,9 @@ def probe_slab_copy(x: torch.Tensor, offs: torch.Tensor, g: int,
         raise ValueError("probe_slab_copy: offs must be (S,) int32")
     n, c = x.shape
     row_bytes = c * 4
-    if row_bytes % 16 or g * row_bytes > SLAB_MAX_BYTES:
-        raise ValueError(f"probe_slab_copy: rows of {row_bytes} B x {g} "
-                         "(16-byte multiples, at most "
-                         f"{SLAB_MAX_BYTES} B a slab)")
+    if row_bytes % 16:
+        raise ValueError(f"probe_slab_copy: rows of {row_bytes} B (16-byte "
+                         "multiples)")
     s = offs.shape[0]
     shape = (s,) if out_rows == 0 else (s * out_rows, c)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)

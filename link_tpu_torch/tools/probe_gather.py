@@ -22,12 +22,13 @@ probe letters at the same shapes, through the hand-written probe kernels of
       27 N with the hit pattern of a real submanifold plan (misses are -1)
 
     python3 -m link_tpu_torch.tools.probe_gather [--iters N] [--reps N]
-        [--only A,B,...] [--device cpu] [--readings N]
+        [--only A,B,...] [--device cpu] [--readings N] [--edges]
 
 --readings N then takes N interleaved readings (kernel, library, library,
 kernel, ...) of C's three shapes against `x[idx]` and of O against `clone`,
 and prints each side's median and spread and whether the kernel loses by
-more than the larger spread.
+more than the larger spread. --edges then holds the edge cases of
+`Probes.edges` bit-equal against the twins.
 
 One line per case: ms per launch (the least over `reps` replays of a CUDA
 graph of `iters` back-to-back launches, so that it reads the card's time
@@ -47,6 +48,7 @@ times, of no use as a measurement.
 from __future__ import annotations
 
 import argparse
+import subprocess
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -333,6 +335,74 @@ class Probes:
                     else "does not lose beyond the spread"))
         return case
 
+    def edges(self) -> List[Dict]:
+        """The edges of the probe kernels' work layouts, each held bit-equal
+        against its twin (a mismatch or a failed launch raises); not timed.
+        `probe_slab_copy`: a slab above the 232,448 B one block's shared
+        memory holds (G=2048 at 256 B, cut into stage-sized chunks), a slab
+        of no whole number of stages (G=200 at 256 B), out_rows = G, 20,000
+        slabs (far more than the grid's blocks) and 3 (fewer), 16-byte rows
+        one to a slab, a slab larger than the table, and offsets -1, 0,
+        N - G and N - G + 1 in each. `probe_row_gather`: rows of 24 and 12 B (3
+        vectors a row), 2 and 6 B, 8, 32 and 64 B (1, 2 and 4 vectors),
+        128 B, 800 and 1,024 B (rows wider than a warp), a 4-byte-aligned
+        table of 256 B rows (4-byte vectors), 4-byte rows with an index
+        16-byte aligned and not, Q = 1001, 1, 3 and 0, and indices -1 and
+        >= N; then rows of 5 and 6 vectors at Q = 2 and 1.5 million, which
+        on the H100 take the kernel of 4 items a lane (32 waves of the
+        card's lanes or more), a lane's items crossing rows."""
+        out = []
+
+        def check(kernel, name, got, want):
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"{kernel} edge {name}: differs from "
+                                     "the twin")
+            out.append({"kernel": kernel, "name": name, "bit_equal": True})
+
+        for n, c, g, s, rows in ((8192, 64, 2048, 6, (0, 8, 2048)),
+                                 (8192, 64, 200, 300, (0, 130, 200)),
+                                 (86016, 64, 8, 20000, (0, 8)),
+                                 (8192, 64, 64, 3, (0, 64)),
+                                 (5000, 4, 1, 5000, (0, 1)),
+                                 (100, 4, 128, 4, (0, 64))):
+            x = self._table(n, c, "float32")
+            offs = self.rng.integers(0, max(n - g, 1), size=(s,))
+            edge = np.array([-1, 0, n - g, n - g + 1])
+            offs[:min(s, 4)] = edge[:min(s, 4)]
+            offs = torch.from_numpy(offs.astype(np.int32)).to(self.device)
+            for r in rows:
+                check("probe_slab_copy",
+                      f"N={n} C={c} G={g} S={s} out_rows={r}",
+                      kernels.probe_slab_copy(x, offs, g, r),
+                      kernels.probe_slab_copy_plain(x, offs, g, r))
+
+        def gather(name, x, q, idx=None):
+            n = x.shape[0]
+            if idx is None:
+                idx = torch.from_numpy(self.rng.integers(
+                    -3, n + 3, size=(q,)).astype(np.int32)).to(self.device)
+            check("probe_row_gather", f"{name} N={n} Q={idx.shape[0]}",
+                  kernels.probe_row_gather(x, idx),
+                  kernels.probe_row_gather_plain(x, idx))
+
+        for c, dtype in ((6, "float32"), (3, "int32"), (0, "bfloat16"),
+                         (3, "bfloat16"), (2, "float32"), (8, "float32"),
+                         (16, "float32"), (32, "float32"), (200, "float32"),
+                         (256, "float32"), (0, "int32"), (64, "float32")):
+            x = self._table(3000, c, dtype)
+            for q in (1001, 1, 3, 0):
+                gather(f"C={c or 1} {dtype}", x, q)
+        flat = self._table(3000 * 64 + 1, 0, "float32")
+        gather("C=64 float32, 4-byte-aligned table",
+               flat[1:].view(3000, 64), 1001)
+        x = self._table(3000, 0, "int32")
+        idx = torch.from_numpy(self.rng.integers(-3, 3003, size=(1002,))
+                               .astype(np.int32)).to(self.device)
+        gather("C=1 int32, 4-byte-aligned index", x, 0, idx[1:])
+        for c, q in ((10, 2_000_000), (24, 1_500_000)):
+            gather(f"C={c} float32", self._table(3000, c, "float32"), q)
+        return out
+
     def plan_index(self, n_scans: int) -> torch.Tensor:
         """(27, N) kernel map of the stem's submanifold plan over a
         synthetic batch of `n_scans` 80k-voxel scans (N = n_scans * 84,992
@@ -423,6 +493,8 @@ def main(argv=None) -> int:
     ap.add_argument("--readings", type=int, default=0,
                     help="then N interleaved readings of 4c and O against "
                          "their library calls")
+    ap.add_argument("--edges", action="store_true",
+                    help="then the edge cases, bit-equal against the twins")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
     if only and not only <= set(LETTERS):
@@ -434,10 +506,16 @@ def main(argv=None) -> int:
                                "plain twins")
         print("torch", torch.__version__, "device",
               torch.cuda.get_device_name(device))
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()[0])
     probes = Probes(device, args.iters, args.reps)
     probes.run(only)
     if args.readings:
         probes.readings(args.readings)
+    if args.edges:
+        print(f"# edges: {len(probes.edges())} cases bit-equal to the twins")
     return 0
 
 

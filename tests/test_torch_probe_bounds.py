@@ -82,3 +82,18 @@ def test_readings_run_on_the_twins():
         assert r["margin_ms"] == pytest.approx(
             r["kernel_ms"]["median"] - r["library_ms"]["median"])
         assert isinstance(r["loses_beyond_spread"], bool)
+
+
+def test_edges_run_on_the_twins():
+    # the kernels' edge cases (chip_smoke.py holds them on the card): both
+    # kernels, each case bit-equal (here twin against twin), the slab sizes
+    # above one block's shared memory and of a stage and a part among them
+    p = pg.Probes("cpu", iters=1, reps=1, log=lambda s: None)
+    got = p.edges()
+    assert all(r["bit_equal"] for r in got)
+    names = [r["name"] for r in got]
+    assert sum(r["kernel"] == "probe_slab_copy" for r in got) == 14
+    assert "N=8192 C=64 G=2048 S=6 out_rows=2048" in names
+    assert "N=8192 C=64 G=200 S=300 out_rows=200" in names
+    assert "C=6 float32 N=3000 Q=1" in names
+    assert "C=1 int32, 4-byte-aligned index N=3000 Q=1001" in names
