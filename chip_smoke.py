@@ -121,10 +121,48 @@ Phases, in order (any failure raises and the script exits non-zero):
                  memory;
  14. train_profile one more step under torch.profiler: device time by kernel,
                  idle share, and the forward / backward / optimizer split;
+ 14b. det_train_kernels `window_conv` and the backward of the window-form
+                 conv (`WindowConv`) at the det step's level-0 plan (two
+                 synthetic frames at 327,680 rows): the forward at 5 -> 16
+                 and 16 -> 16, the feature gradient (`window_conv` over the
+                 plan's windows with W[mirror]^T) and weight gradient
+                 (`gather_wgrad` over the mirrored map) against their
+                 twins, f32 < 1e-5 and bit-equal over two runs, the whole
+                 backward through autograd against autograd through the
+                 plain conv, timed beside `GatherConv`'s backward on the
+                 same plan; the stem's weight gradient (5 -> 16; no
+                 feature gradient); and level 1 (163,840 rows, 32
+                 channels), off the f32 step's path, alike;
+ 14c. det_train_grad one det step of the tiny VoxelNet of
+                 tests/test_det_train_step.py on the card against the same
+                 step on the CPU, the CPU's ReLUs given the card's side
+                 where |x| lies below 1e-4 of the call's largest |x| (an
+                 input on the other side must lie there): loss, and every
+                 gradient < 1e-4 of the largest gradient; the CPU step on
+                 its own sides is read beside;
+ 14d. det_train_golden the 40 float64 steps of
+                 tests/goldens/det_train_ab.npz (RPN + CenterHead,
+                 one-cycle Adam) replayed on the card against the
+                 reference's loss curve;
+ 14e. det_train_main det_train's default recipe at full width:
+                 CenterPoint-ELKv3 f32, 2 synthetic frames a step at
+                 capacities (327,680, 163,840, 81,920, 40,960), one-cycle
+                 Adam; 1 warm and 6 timed steps: ms per step, frames/s,
+                 launches of each kernel in one step (window_conv and
+                 gather_conv forward and backward apart), losses, peak
+                 memory;
+ 14f. det_train_profile one more step under torch.profiler: device time by
+                 kernel, idle share, the forward / backward / optimizer
+                 split and the join-site check;
+ 14g. det_train_cli `python3 -m link_tpu_torch.tools.det_train --synthetic
+                 --epochs 1` in a fresh process (4 steps into
+                 chiprun_out/det_train_run): losses and the peak memory of
+                 a fresh process;
  15. path_shapes `gather_conv` and `gather_wgrad` against their twins,
                  bit-equal over two runs, at every distinct shape and dtype
-                 of one more seg pass, det pass and training step (their
-                 inputs recorded as the paths make them); then one more
+                 of one more seg pass, det pass, seg training step and det
+                 training step (their inputs recorded as the paths make
+                 them); then one more
                  pass of each seg family: `gather_conv` at each (K, Ci, Co,
                  dtype) no earlier path gives it (f32 rel < 1e-5, bf16 <
                  8e-3, bit-equal over two runs, timed with its bound and
@@ -147,6 +185,10 @@ Phases, in order (any failure raises and the script exits non-zero):
                  indices >= N, rows of 5-6 vectors at Q = 1.5-2 million
                  for the kernel of 4 items a lane), each bit-equal against
                  its twin.
+
+`gather_wgrad` is held against its twin's sum in float64: a weight
+gradient can cancel a thousandfold (the det stem's), and the float32 twin's
+own rounding then takes most of the 1e-5 bound.
 
 A kernel, twin or library call is timed as the mean over the replay of a
 CUDA graph of back-to-back calls, so that it reads the card's time and not
@@ -622,9 +664,12 @@ def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
+    # torch.optim wraps each step in its own range ("Optimizer.step#<class>.
+    # step"), which the trace also lays on the device's timeline as an
+    # annotation spanning the step's kernels: no device work of its own
     kern = [e for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and e.key not in ranges]
+            and e.key not in ranges and not e.key.startswith("Optimizer.")]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_items
     by_name = sorted(((e.self_device_time_total / 1e3 / n_items, e.count
                        // n_items, e.key) for e in kern), reverse=True)
@@ -1708,19 +1753,38 @@ def _train_batches(n_batches: int, caps0: int, ext):
     return out
 
 
+def _wgrad_f64(feats, g, bwd_idx):
+    """The plain twin's sum (`gather_wgrad_plain`) in float64."""
+    import torch
+    m, co = g.shape
+    f = feats.double()
+    ext = torch.cat([g.double(), g.new_zeros((1, co), dtype=torch.float64)])
+    safe = torch.where(bwd_idx >= 0, bwd_idx,
+                       torch.full_like(bwd_idx, m)).long()
+    return torch.stack([f.T @ ext[safe[kk]] for kk in range(safe.shape[0])])
+
+
 def _wgrad_case(kernels, feats, g, bwd_idx, iters, work=None, role=""):
-    """gather_wgrad vs its twin on one shape: error, two runs bit-equal,
-    times, bound (and PR 3's CUDA-core bound beside it). `work` is the work
-    list the main path hands the kernel (built here when None)."""
+    """gather_wgrad vs its plain twin on one shape: error, two runs
+    bit-equal, times, bound (and PR 3's CUDA-core bound beside it). `work`
+    is the work list the main path hands the kernel (built here when None).
+    The error is held against the twin's sum in float64: a weight gradient
+    can cancel a thousandfold (the det stem's), and the float32 twin then
+    misses the exact sum by up to 6e-6 of its largest entry, most of the
+    1e-5 bound; the error against the float32 twin is kept beside."""
     import torch
     if work is None:
         work = kernels.wgrad_work_list(bwd_idx)
     got = kernels.gather_wgrad(feats, g, bwd_idx, work)
-    want = kernels.gather_wgrad_plain(feats, g, bwd_idx)
+    want = _wgrad_f64(feats, g, bwd_idx)
+    twin = kernels.gather_wgrad_plain(feats, g, bwd_idx)
     again = kernels.gather_wgrad(feats, g, bwd_idx, work)
     torch.cuda.synchronize()
     dt = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
-    err = rel_err(got, want)
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    err_twin = rel_err(got, twin)
+    twin_err = float((twin.double() - want).abs().max() / want.abs().max())
+    del twin
     n, ci = feats.shape
     m, co = g.shape
     k = bwd_idx.shape[0]
@@ -1738,7 +1802,8 @@ def _wgrad_case(kernels, feats, g, bwd_idx, iters, work=None, role=""):
     case = {
         "shape": shape, "role": role,
         "rel_err": err, "tol": F32_REL_TOL,
-        "max_abs_err": float((got - want).abs().max()),
+        "rel_err_vs_f32_twin": err_twin, "f32_twin_rel_err": twin_err,
+        "max_abs_err": float((got.double() - want).abs().max()),
         "same_twice": bool(torch.equal(got, again)),
         "ms": cuda_ms(lambda: kernels.gather_wgrad(feats, g, bwd_idx, work),
                       iters, f"gather_wgrad {shape}"),
@@ -1752,7 +1817,9 @@ def _wgrad_case(kernels, feats, g, bwd_idx, iters, work=None, role=""):
         "library_ms": None, "hits": hits,
     }
     log(f"gather_wgrad {shape}{' (' + role + ')' if role else ''}: rel err "
-        f"{err:.3g} (tol {F32_REL_TOL}), same twice {case['same_twice']}, "
+        f"{err:.3g} against the float64 sum (tol {F32_REL_TOL}; against the "
+        f"float32 twin {err_twin:.3g}, the twin's own {twin_err:.3g}), same "
+        f"twice {case['same_twice']}, "
         f"kernel {case['ms']:.4f} ms, twin {case['plain_ms']:.4f} ms, bound "
         f"{case['bound_ms']:.4f} ms ({case['bound_by']}; bytes "
         f"{t_bytes:.4f}, operations {t_ops:.4f}), hits {hits} of {k * n}")
@@ -2101,6 +2168,590 @@ def phase_train_profile(res, ctx):
 
 
 # --------------------------------------------------------------------------
+# detection training
+
+
+DET_TRAIN_CAPS = (327680, 163840, 81920, 40960)   # det_train's default recipe
+DET_TRAIN_TINY_CAPS = (8192, 4096, 2048, 1024)    # tests/test_det_train_step.py
+DET_TRAIN_GOLDEN = os.path.join(HERE, "tests", "goldens", "det_train_ab.npz")
+DET_TRAIN_ZERO_LEAF = 1e-7   # a leaf whose largest gradient is below this
+#                              share of the largest of all holds float noise
+#                              (the biases of convs that feed a BatchNorm)
+#                              and is held against the largest instead
+DET_TRAIN_FLIP = 1e-4       # a ReLU input on other sides on the card and
+#                             the CPU: at most this share of its call's
+#                             largest |x| (the forward agrees to ~1e-6)
+DET_TRAIN_CLI_TIMEOUT = 300
+
+
+def _det_train_batches(n_batches: int):
+    """`n_batches` collated batches of two synthetic train-mode nuScenes
+    frames each (targets included) at det_train's default capacity,
+    327,680 rows."""
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.data.nuscenes import SyntheticNuScenes
+    ds = SyntheticNuScenes(length=2 * n_batches, mode="train",
+                           max_voxels=DET_TRAIN_CAPS[0] // 2)
+    return [dp.collate_det([ds[2 * i], ds[2 * i + 1]], DET_TRAIN_CAPS[0])
+            for i in range(n_batches)]
+
+
+def _window_backward_case(kernels, WindowConv, GatherConv, plan, ci, co,
+                          iters, role):
+    """`WindowConv`'s backward on one window plan: the feature gradient
+    (`window_conv` over the plan's windows with W[mirror]^T) and the weight
+    gradient (`gather_wgrad` over the mirrored map), each against its
+    twin, f32 < 1e-5 and bit-equal over two runs, with times and bounds;
+    the whole backward through autograd against autograd through the
+    plain conv; and the two kernels' time beside `GatherConv`'s backward
+    on the same plan (`gather_conv` over the inverse map + the same
+    `gather_wgrad`), by graph replay."""
+    import torch
+    from link_tpu_torch.sparse.conv import (_mirror_index, plan_bwd_idx,
+                                            plan_wgrad_work)
+    dev = plan.slot.device
+    m = plan.slot.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(ci)
+    feats = torch.randn((m, ci), generator=gen, device=dev)
+    w = torch.randn((27, ci, co), generator=gen, device=dev) * (27 * ci) ** -.5
+    cot = torch.randn((m, co), generator=gen, device=dev)
+    w_bwd = w[_mirror_index(plan.mirror, dev)].transpose(1, 2).contiguous()
+    d_feats = _window_case(kernels, cot, plan, w_bwd, iters)
+    bwd = plan_bwd_idx(plan)
+    work = plan_wgrad_work(plan)
+    d_w = _wgrad_case(kernels, feats, cot, bwd, iters, work,
+                      role=f"{role} d_W")
+    grads = []
+    for fn in (lambda f, k: WindowConv.apply(f, k, plan),
+               lambda f, k: kernels.window_conv_plain(
+                   f, plan.base_pos, plan.slot, plan.groups, k)):
+        f = feats.clone().requires_grad_()
+        k = w.clone().requires_grad_()
+        fn(f, k).backward(cot)
+        grads.append((f.grad, k.grad))
+    torch.cuda.synchronize()
+    errs = {"d_feats": rel_err(grads[0][0], grads[1][0]),
+            "d_weight": rel_err(grads[0][1], grads[1][1])}
+    w_t = w.transpose(1, 2).contiguous()
+    window_ms = cuda_ms(lambda: (
+        kernels.window_conv(cot, plan.base_pos, plan.slot, plan.groups,
+                            w_bwd),
+        kernels.gather_wgrad(feats, cot, bwd, work)), iters,
+        f"WindowConv backward {role}")
+    gather_ms = cuda_ms(lambda: (
+        kernels.gather_conv(cot, bwd, w_t),
+        kernels.gather_wgrad(feats, cot, bwd, work)), iters,
+        f"GatherConv backward {role}")
+    gather_dfeats_ms = cuda_ms(lambda: kernels.gather_conv(cot, bwd, w_t),
+                               iters, f"gather_conv d_feats {role}")
+    log(f"WindowConv backward {role} ({ci}->{co}): autograd vs the plain "
+        f"conv's d_feats {errs['d_feats']:.3g}, d_W {errs['d_weight']:.3g} "
+        f"(tol {F32_REL_TOL}); backward {window_ms:.4f} ms (d_feats "
+        f"{d_feats['ms']:.4f} + d_W {d_w['ms']:.4f}), GatherConv's "
+        f"{gather_ms:.4f} ms (d_feats {gather_dfeats_ms:.4f})")
+    if not max(errs.values()) < F32_REL_TOL:
+        raise AssertionError(f"WindowConv backward {role}: {errs}")
+    return {"role": role, "ci": ci, "co": co, "d_feats": d_feats,
+            "d_weight": d_w, "autograd_rel_err": errs,
+            "window_backward_ms": window_ms,
+            "gather_backward_ms": gather_ms,
+            "gather_d_feats_ms": gather_dfeats_ms}
+
+
+def phase_det_train_kernels(res, ctx, iters=20):
+    """`window_conv` and `WindowConv`'s backward at the det step's own
+    level-0 plan: two synthetic train-mode frames collated at det_train's
+    default capacity (327,680 rows). The forward at 5 -> 16 (the stem) and
+    16 -> 16, the feature gradient at 16 -> 16 with W[mirror]^T, and the
+    weight gradients 16 -> 16 and 5 -> 16 (the stem's whole backward: the
+    voxel means need no gradient). Then level 1 (32 channels), which the
+    float32 step sends to the gather form (a 32-channel float32 window
+    exceeds one 256 B chunk) and bfloat16 serving takes in the window form:
+    off the det step's path, compared and timed all the same."""
+    import torch
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse import coords as C
+    from link_tpu_torch.sparse.conv import (GatherConv, WindowConv,
+                                            add_window_form, build_conv_plan,
+                                            plan_bwd_idx, plan_wgrad_work,
+                                            window_chunk)
+    from link_tpu_torch.sparse.spconv_engine import (spconv_downsample,
+                                                     spconv_out_shape)
+
+    dev = torch.device("cuda")
+    batch = _det_train_batches(1)[0]
+    coords = torch.from_numpy(batch["coords"]).to(dev)
+    nnz = torch.tensor(int(batch["nnz"]), dtype=torch.int32, device=dev)
+    offs = C.kernel_offsets_np(3)
+    plans = {}
+    c, n, cap = coords, nnz, DET_TRAIN_CAPS[0]
+    for lvl in (0, 1):
+        if lvl:
+            shape = spconv_out_shape((1440, 1440, 41), (3, 3, 3), (2, 2, 2),
+                                     (1, 1, 1))
+            c, n = spconv_downsample(coords, (3, 3, 3), (2, 2, 2), (1, 1, 1),
+                                     shape, DET_TRAIN_CAPS[1])
+            cap = DET_TRAIN_CAPS[1]
+        table = C.build_table(c, assume_sorted=True)
+        plans[lvl] = add_window_form(build_conv_plan(
+            c, c, n, offs, cap, in_sorted=True, table=table), table, offs, 1)
+        log(f"det train level {lvl}: {int(n)} voxels of 2 frames in {cap} "
+            f"rows, windows of {plans[lvl].window} rows")
+    if window_chunk(plans[1].window, 32, 4) >= plans[1].window:
+        raise AssertionError("det level 1 would take the window form in "
+                             "float32: the level-1 case is then on the path")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = plans[0].slot.shape[1]
+    forward = [_window_case(
+        kernels, torch.randn((m, ci), generator=gen, device=dev), plans[0],
+        torch.randn((27, ci, 16), generator=gen, device=dev)
+        * (27 * ci) ** -.5, iters) for ci in (5, 16)]
+    cases = [_window_backward_case(kernels, WindowConv, GatherConv, plans[0],
+                                   16, 16, iters, "det train level 0"),
+             _window_backward_case(kernels, WindowConv, GatherConv, plans[1],
+                                   32, 32, iters,
+                                   "det train level 1 (off the f32 path)")]
+    stem = _wgrad_case(kernels, torch.randn((m, 5), generator=gen,
+                                            device=dev),
+                       torch.randn((m, 16), generator=gen, device=dev),
+                       plan_bwd_idx(plans[0]), iters,
+                       plan_wgrad_work(plans[0]), role="det train stem d_W")
+    res["det_train_window_forward"] = forward
+    res["det_train_window_backward"] = cases
+    res["det_train_stem_wgrad"] = stem
+
+
+def _det_tiny_batch():
+    """tests/test_det_train_step.py's two tiny frames with their targets,
+    collated at capacity 8,192."""
+    from link_tpu_torch.data import det_pipeline as dp
+    rng = np.random.default_rng(70)
+    pr, vs = (-12, -12, -2, 12, 12, 2), (0.5, 0.5, 0.1)
+    samples = []
+    for i in range(2):
+        pts = rng.uniform(-11, 11, (3000, 5)).astype(np.float32)
+        pts[:, 2] = rng.uniform(-1.9, 1.9, 3000)
+        v, c, n = dp.points_to_voxel(pts, vs, pr, max_points=5,
+                                     max_voxels=4000)
+        boxes = np.array([[0.0, 2.0 * i, 0.0, 2.0, 4.0, 1.5, 0, 0, 0.1]],
+                         np.float32)
+        t = dp.assign_label(boxes, np.array([1]), pc_range=pr, voxel_size=vs,
+                            out_size_factor=8, max_objs=10)
+        samples.append({"voxels": v, "coords_zyx": c, "num_points": n,
+                        "targets": t})
+    return dp.collate_det(samples, DET_TRAIN_TINY_CAPS[0], max_points=5)
+
+
+class ReluMasks:
+    """Records, in order, which inputs of every ReLU of a training forward
+    (`torch.relu`, `F.relu`, on inputs that need a gradient) are positive;
+    given the masks of an earlier run (`force`), applies them to the
+    elements whose |x| lies below DET_TRAIN_FLIP of the call's largest
+    |x| (each other element takes its own side), and records the flips:
+    elements whose own side differs from the given mask, with their |x| as
+    a share of the call's largest |x|."""
+
+    def __init__(self, force=None):
+        self.masks, self.force, self.flips = [], force, []
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        self._real = (torch.relu, F.relu)
+        real_relu = self._real[0]
+
+        def relu(x, *a, **kw):
+            import torch
+            if not (torch.is_grad_enabled() and x.requires_grad):
+                return real_relu(x)
+            pos = x.detach() > 0
+            if self.force is None:
+                self.masks.append(pos)
+                return real_relu(x)
+            given = self.force[len(self.masks)].to(x.device)
+            ax = x.detach().abs()
+            mask = torch.where(ax < DET_TRAIN_FLIP * ax.max(), given, pos)
+            self.masks.append(mask)
+            flip = pos != given
+            if bool(flip.any()):
+                self.flips.append((len(self.masks) - 1, int(flip.sum()),
+                                   float(ax[flip].max() / ax.max())))
+            return torch.where(mask, x, torch.zeros_like(x))
+
+        torch.relu = relu
+        F.relu = lambda x, inplace=False: relu(x)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.nn.functional as F
+        torch.relu, F.relu = self._real
+        return False
+
+
+def _grad_errs(grads_c, grads_g):
+    """Each leaf's largest difference against the largest gradient of all,
+    and against its own leaf's largest (a leaf whose gradient is 0 up to
+    noise, below DET_TRAIN_ZERO_LEAF of the largest, against the largest):
+    (largest gradient, errors, leaf errors)."""
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    errs, leaf_errs = {}, {}
+    for k, g in grads_c.items():
+        diff = float((grads_g[k] - g).abs().max())
+        scale = float(g.abs().max())
+        scale = scale if scale >= DET_TRAIN_ZERO_LEAF * top else top
+        errs[k] = diff / top
+        leaf_errs[k] = diff / max(scale, 1e-30)
+    return top, errs, leaf_errs
+
+
+def phase_det_train_grad(res, ctx):
+    """One det step of the tiny VoxelNet (seed 0) on the card against the
+    same step on the CPU (plain twins): the loss, and every gradient
+    within 1e-4 of the largest gradient of all. A ReLU input at float
+    noise can take either side on the two devices (and between two runs
+    on the card, whose `index_add_` adds in no fixed order), and one such
+    element moves every gradient upstream by a whole term; so the CPU step
+    takes the card's side for each ReLU input whose |x| lies below
+    DET_TRAIN_FLIP of its call's largest, and decides every other input
+    itself; a flip (a side that differs from the card's) must lie below
+    that share. The same CPU step without the card's sides is compared
+    too, and its reading recorded beside, not gated. Each leaf's error
+    against its own largest magnitude is printed beside."""
+    import torch
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.train import det_trainer as DT
+    from link_tpu_torch.train import schedules
+
+    batch = _det_tiny_batch()
+    out = {}
+    masks = None
+    for run, device, force in (("cuda", "cuda", False), ("cpu", "cpu", True),
+                               ("cpu unforced", "cpu", False)):
+        model = VoxelNet(batch_size=2, grid_shape=(48, 48, 40),
+                         capacities=DET_TRAIN_TINY_CAPS, device=device,
+                         generator=torch.Generator().manual_seed(0))
+        opt = DT.make_one_cycle_adam(model, *schedules.one_cycle(1e-3, 100))
+        with ReluMasks(force=masks if force else None) as relus:
+            m = DT.det_train_step(model, opt, batch)
+        if run == "cuda":
+            masks = [mk.cpu() for mk in relus.masks]
+        elif force:
+            flips = relus.flips
+        out[run] = (float(m["loss"]),
+                    {k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()
+                     if p.grad is not None})
+    (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
+    top, errs, leaf_errs = _grad_errs(grads_c, grads_g)
+    _, free_errs, _ = _grad_errs(out["cpu unforced"][1], grads_g)
+    worst = max(errs, key=errs.get)
+    leaf_worst = max(leaf_errs, key=leaf_errs.get)
+    free_worst = max(free_errs, key=free_errs.get)
+    res["det_train_grad"] = {"loss_cpu": loss_c, "loss_cuda": loss_g,
+                             "worst": worst, "worst_rel_err": errs[worst],
+                             "leaf_worst": leaf_worst,
+                             "leaf_worst_rel_err": leaf_errs[leaf_worst],
+                             "leaves": len(errs), "largest_gradient": top,
+                             "relu_calls": len(masks), "relu_flips": flips,
+                             "unforced_worst": free_worst,
+                             "unforced_worst_rel_err": free_errs[free_worst]}
+    log(f"det_train_grad: loss cpu {loss_c:.6f} card {loss_g:.6f}; "
+        f"{len(errs)} gradients, worst {errs[worst]:.3g} of the largest "
+        f"gradient {top:.4g} ({worst}; tol {TRAIN_GRAD_REL_TOL}); against "
+        f"its own leaf's largest {leaf_errs[leaf_worst]:.3g} "
+        f"({leaf_worst}); ReLU inputs on other sides than the card's, "
+        f"(call, elements, |x| of the call's largest): {flips} of "
+        f"{len(masks)} calls (tol {DET_TRAIN_FLIP}); the CPU step on its "
+        f"own sides: worst {free_errs[free_worst]:.3g} ({free_worst}; not "
+        "gated)")
+    if (sorted(grads_c) != sorted(grads_g)
+            or abs(loss_c - loss_g) > 1e-4 * abs(loss_c)
+            or not errs[worst] < TRAIN_GRAD_REL_TOL
+            or any(share >= DET_TRAIN_FLIP for _, _, share in flips)):
+        raise AssertionError(f"det_train_grad: loss {loss_c} vs {loss_g}, "
+                             f"worst gradient {worst} rel err {errs[worst]}, "
+                             f"ReLU flips {flips}")
+
+
+def phase_det_train_golden(res, ctx):
+    """tests/goldens/det_train_ab.npz's 40 steps of the reference dense det
+    composite (RPN + CenterHead, two tasks) replayed on the card in float64
+    through the port's modules, `center_head_loss` and `OneCycleAdam` fed
+    the recorded lr and momentum, against the reference's loss curve at
+    the bounds of tests/test_det_convergence_ab.py."""
+    import torch
+    from link_tpu_torch.data.det_pipeline import TARGET_KEYS
+    from link_tpu_torch.models.center_head import CenterHead, center_head_loss
+    from link_tpu_torch.models.rpn import RPN
+    from link_tpu_torch.train.det_trainer import OneCycleAdam
+
+    g = np.load(DET_TRAIN_GOLDEN)
+    tasks = (("car",), ("truck", "bus"))
+    steps, n_frames = int(g["steps"]), int(g["n_frames"])
+    ref, lrs, moms = (np.asarray(g[k]) for k in ("losses", "lrs", "moms"))
+    dev = torch.device("cuda")
+    neck = RPN(layer_nums=(2, 2), ds_layer_strides=(1, 2),
+               ds_num_filters=(32, 64), us_layer_strides=(1, 2),
+               us_num_filters=(32, 32), num_input_features=32,
+               dtype="float64", device=dev).double()
+    head = CenterHead(in_channels=64, tasks=tasks, share_conv_channel=32,
+                      dtype="float64", device=dev).double()
+    sd = {k[3:].replace("__", "."): torch.from_numpy(np.array(g[k]))
+          for k in g.files if k.startswith("sd_")}
+    for prefix, mod in (("neck.", neck), ("bbox_head.", head)):
+        mod.load_state_dict({k[len(prefix):]: v.double()
+                             if v.is_floating_point() else v
+                             for k, v in sd.items() if k.startswith(prefix)},
+                            strict=True)
+    frames = []
+    for i in range(n_frames):
+        ex = {"bev": torch.from_numpy(g[f"frame{i}_bev"]).to(dev).double()}
+        for k in TARGET_KEYS:
+            dt = (torch.float64 if k in ("hm", "anno_box", "mask")
+                  else torch.long)
+            ex[k] = [torch.from_numpy(np.array(g[f"frame{i}_{k}{t}"]))
+                     .to(dev, dt)[None] for t in range(len(tasks))]
+        frames.append(ex)
+    opt = OneCycleAdam(list(neck.parameters()) + list(head.parameters()),
+                       lambda s: float(lrs[s]), lambda s: float(moms[s]),
+                       weight_decay=0.01, grad_clip=35.0)
+    neck.train()
+    head.train()
+    t0 = time.perf_counter()
+    # cuDNN's float64 conv backward may add in no fixed order; the
+    # deterministic algorithms give one curve in every run
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses = []
+        for it in range(steps):
+            ex = frames[it % n_frames]
+            opt.zero_grad(set_to_none=True)
+            loss, _ = center_head_loss(head(neck(ex["bev"])), ex, 0.25)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        losses = np.asarray([float(v) for v in losses])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    err = np.abs(losses - ref)
+    tol = 1e-7 + 1e-13 * 1.5 ** np.arange(steps) + 1e-6 * ref
+    res["det_train_golden"] = {"losses": losses.tolist(),
+                               "ref_losses": ref.tolist(),
+                               "max_err": float(err.max()),
+                               "worst_share_of_tol": float((err / tol).max()),
+                               "s": time.perf_counter() - t0}
+    log(f"det_train_golden f64: {steps} steps, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (reference {ref[0]:.6f} -> {ref[-1]:.6f}), max "
+        f"|err| {err.max():.3g}, worst {float((err / tol).max()):.3g} of its "
+        f"bound at step {int((err / tol).argmax())}")
+    if not (err <= tol).all():
+        raise AssertionError(f"det_train_golden: max err {err.max()} at step "
+                             f"{err.argmax()}")
+
+
+class ConvLaunchSplit:
+    """Counts, during one run, the calls of `window_conv` and `gather_conv`
+    as `link_tpu_torch.sparse.conv` makes them, apart for the forward and
+    the backward (a call made while autograd runs a graph task); every call
+    still reaches the wrapper, which counts its launch."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import torch
+        from link_tpu_torch.sparse import conv as sconv
+        self._module, self._real = sconv, sconv.kernels
+        real, calls = self._real, self.calls
+
+        def counted(name):
+            def call(*a, **kw):
+                key = (name, "backward"
+                       if torch._C._current_graph_task_id() >= 0
+                       else "forward")
+                calls[key] = calls.get(key, 0) + 1
+                return getattr(real, name)(*a, **kw)
+            return call
+
+        class View:
+            window_conv = staticmethod(counted("window_conv"))
+            gather_conv = staticmethod(counted("gather_conv"))
+
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+        sconv.kernels = View()
+        return self
+
+    def __exit__(self, *exc):
+        self._module.kernels = self._real
+        return False
+
+
+def phase_det_train_main(res, ctx, timed_steps=6):
+    """det_train's default recipe at full width: CenterPoint-ELKv3 f32,
+    one-cycle Adam, 2 synthetic frames a step at capacities (327,680,
+    163,840, 81,920, 40,960) on the 1440 x 1440 x 40 grid; 1 warm and
+    `timed_steps` timed steps."""
+    import torch
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.train import det_trainer as DT
+    from link_tpu_torch.train import schedules
+    from link_tpu_torch.tools import det_train as tool
+
+    batches = _det_train_batches(2)
+    model = VoxelNet(batch_size=2, capacities=DET_TRAIN_CAPS, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    r = tool.RECIPE
+    lr_fn, mom_fn = schedules.one_cycle(
+        r["lr_max"], r["epochs"] * 4, moms=r["moms"],
+        div_factor=r["div_factor"], pct_start=r["pct_start"])
+    opt = DT.make_one_cycle_adam(model, lr_fn, mom_fn, weight_decay=r["wd"],
+                                 grad_clip=r["clip"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(it):
+        return DT.det_train_step(model, opt, batches[it % len(batches)])
+
+    # as a user's det_train process runs: PyTorch's own TF32 flags (cuDNN's
+    # float32 convolutions of the RPN and head on TF32); the hand kernels
+    # run float32 as 3xTF32 either way
+    with user_tf32():
+        metrics = [step(0)]                                     # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for it in range(1, timed_steps + 1):
+            if it == 1:
+                kernels.reset_launch_counts()
+                split = ConvLaunchSplit().__enter__()
+            t0 = time.perf_counter()
+            metrics.append(step(it))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if it == 1:
+                split.__exit__()
+                launches = {fn.__name__: fn.launches
+                            for fn in kernels.KERNELS}
+                builds = kernels.wgrad_work_list.builds
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more step with TF32 off, as the parity gates run: its peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics.append(step(timed_steps + 1))
+    torch.cuda.synchronize()
+    res["det_train_tf32_off_ms"] = (time.perf_counter() - t0) * 1e3
+    res["det_train_tf32_off_peak_mem_gb"] = (torch.cuda.max_memory_allocated()
+                                             / 2**30)
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    nnz = [int(b["nnz"]) for b in batches]
+    # 33 sparse convs with K > 1: 29 submanifold (7 at level 0, 16
+    # channels, in the window form) and 4 strided. Forward: one launch
+    # each; backward: one gather_wgrad each, and a feature gradient for
+    # every conv but the stem, through the conv's own form. Joins: 4
+    # submanifold levels, 4 strided plans, and level 0's ELK window: two
+    # frames' level-0 lattice (1440 x 1440 x 41 x 2 cells) exceeds
+    # coords.RANK_GRID_MAX_CELLS, so that block takes the sparse aux join
+    # (as link_tpu decides), the others the dense aux grid
+    want = {("window_conv", "forward"): 7, ("window_conv", "backward"): 6,
+            ("gather_conv", "forward"): 26, ("gather_conv", "backward"): 26}
+    want_launch = {"window_conv": 13, "gather_conv": 52, "gather_wgrad": 33,
+                   "sorted_join": 9}
+    res["det_train_launches"] = launches
+    res["det_train_conv_split"] = {f"{k} {d}": v
+                                   for (k, d), v in split.calls.items()}
+    res["det_train_work_list_builds"] = builds
+    res["det_train_losses"] = losses
+    res["det_train_ms_per_step"] = times
+    res["det_train_frames_per_s"] = 2 * len(times) / (sum(times) / 1e3)
+    res["det_train_peak_mem_gb"] = peak
+    res["det_train_nnz"] = nnz
+    log(f"det train path f32, 2 frames a step ({nnz} voxels): ms per step "
+        f"{[round(v, 1) for v in times]} (median "
+        f"{float(np.median(times)):.1f}); "
+        f"{res['det_train_frames_per_s']:.3f} training frames/s; launches "
+        f"in one step {launches}; window_conv / gather_conv forward and "
+        f"backward {res['det_train_conv_split']}; {builds} work lists "
+        f"built; peak memory {res['det_train_peak_mem_gb']:.2f} GB (since "
+        "the phase began, with the earlier phases' tensors held); one step "
+        f"with TF32 off {res['det_train_tf32_off_ms']:.1f} ms, peak "
+        f"{res['det_train_tf32_off_peak_mem_gb']:.2f} GB; loss per step "
+        f"{[round(m['loss'], 4) for m in losses]}")
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"non-finite det training losses: {losses}")
+    if (split.calls != want
+            or any(launches[k] != v for k, v in want_launch.items())):
+        raise AssertionError(f"det train launches {launches}, conv calls "
+                             f"{split.calls}; expected {want_launch} and "
+                             f"{want}")
+    ctx.update(det_train_step=step, det_train_next=timed_steps + 2)
+
+
+def phase_det_train_profile(res, ctx):
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
+    from link_tpu_torch.train.det_trainer import RANGES
+    step, it = ctx["det_train_step"], ctx["det_train_next"]
+    with user_tf32():
+        prof = _profile(lambda: step(it), 1,
+                        float(np.median(res["det_train_ms_per_step"])),
+                        "step", ranges=RANGES + (JOIN_RANGE,))
+    res["det_train_profile"] = prof
+    _check_join_sites(prof, "step", res["det_train_launches"]["sorted_join"])
+    r = prof.get("ranges")
+    if r and r[RANGES[0]]["device_ms"]:
+        # autograd runs the backward's launches on its own thread: the
+        # backward's device time is what the other two ranges leave
+        fwd = r[RANGES[0]]["device_ms"]
+        opt = r[RANGES[2]]["device_ms"] or 0.0
+        bwd = prof["device_busy_ms_per_step"] - fwd - opt
+        prof["device_ms_split"] = {"forward": fwd, "backward": bwd,
+                                   "optimizer": opt}
+        log(f"det train step device time: forward {fwd:.2f} ms, backward "
+            f"{bwd:.2f} ms (busy minus the other two), optimizer "
+            f"{opt:.2f} ms")
+
+
+def phase_det_train_cli(res, ctx):
+    """`python3 -m link_tpu_torch.tools.det_train --synthetic --epochs 1`
+    in a fresh process: the default recipe on 8 synthetic frames, 4 steps;
+    its log and metrics go to chiprun_out/det_train_run.* (the run dir,
+    with a 130 MB checkpoint, under runs/ and removed after); the step's
+    peak memory in a fresh process comes from its log."""
+    import shutil
+    run_dir = os.path.join(HERE, "runs", "chip_smoke_det_train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "link_tpu_torch.tools.det_train",
+           "--synthetic", "--epochs", "1", "--run-dir", run_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=DET_TRAIN_CLI_TIMEOUT)
+    s = time.perf_counter() - t0
+    out = os.path.join(HERE, "chiprun_out", "det_train_run")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    for line in proc.stdout.splitlines()[-6:]:
+        log(f"det_train: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"det_train exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    shutil.copy(os.path.join(run_dir, "metrics.jsonl"), out + ".jsonl")
+    shutil.rmtree(run_dir)
+    with open(out + ".jsonl") as f:
+        rec = [json.loads(line) for line in f][-1]
+    res["det_train_cli"] = {"s": s, **rec}
+    log(f"det_train --synthetic --epochs 1: {s:.1f} s, loss "
+        f"{rec['loss/train']:.4f}, {rec['samples_per_sec']:.3f} frames/s "
+        f"(data on the host included), peak memory {rec['peak_mem_gb']:.2f} "
+        "GB in a fresh process")
+    if not (rec["step"] == 4 and np.isfinite(rec["loss/train"])):
+        raise AssertionError(f"det_train: {rec}")
+
+
+# --------------------------------------------------------------------------
 # the conv kernels at every shape of the main paths
 
 
@@ -2217,7 +2868,8 @@ def _unsorted_warp_share(kernels, base) -> float:
 def phase_path_shapes(res, ctx, iters=10):
     """`gather_conv` and `gather_wgrad` against their twins, bit-equal over
     two runs and timed, at every distinct shape that one more seg pass, det
-    pass and training step give them (their inputs as the paths make them;
+    pass, seg training step and det training step give them (their inputs
+    as the paths make them;
     recorded here, so that the earlier phases' counts, times and peak memory
     are the paths' own), and each work list of the step against its plain
     twin. Then one more pass of each seg family: `gather_conv` at every
@@ -2234,6 +2886,8 @@ def phase_path_shapes(res, ctx, iters=10):
         ctx["pred"].forward(ctx["det_batches"][0])
     with ShapeRecorder() as recorders["train"]:
         ctx["train_step"](ctx["train_next"] + 1)
+    with ShapeRecorder() as recorders["det_train"]:
+        ctx.pop("det_train_step")(ctx["det_train_next"] + 1)
     fam_conv, fam_join = {}, {}
     for name, (_, fmodel) in ctx["families"].items():
         with (torch.inference_mode(), ShapeRecorder() as fam_conv[name],
@@ -2259,7 +2913,7 @@ def phase_path_shapes(res, ctx, iters=10):
     res["path_conv_cases"] = conv_cases
     res["path_wgrad_cases"] = wgrad_cases
     log(f"path shapes: gather_conv at {len(conv_cases)} and gather_wgrad at "
-        f"{len(wgrad_cases)} distinct shapes of the three paths, each within "
+        f"{len(wgrad_cases)} distinct shapes of the four paths, each within "
         "its tolerance and bit-equal over two runs; "
         f"{len(CAPTURE_FAILED)} failed graph captures so far")
 
@@ -2369,7 +3023,8 @@ KERNEL_CASE = {
 MAIN_PATHS = {"seg": "launches",
               **{f"seg_{name}": f"family_launches_{name}" for name in FAMILIES},
               "det": "det_launches", "det_serve": "det_serve_launches",
-              "train": "train_launches", "probes": "probe_launches"}
+              "train": "train_launches", "det_train": "det_train_launches",
+              "probes": "probe_launches"}
 
 
 def kernels_line(res):
@@ -2431,8 +3086,11 @@ def main() -> int:
                   phase_det_elk_golden, phase_det_main, phase_det_profile,
                   phase_det_nms_kernels, phase_det_serve,
                   phase_train_kernels, phase_train_grad, phase_train_golden,
-                  phase_train_main, phase_train_profile, phase_path_shapes,
-                  phase_probes):
+                  phase_train_main, phase_train_profile,
+                  phase_det_train_kernels, phase_det_train_grad,
+                  phase_det_train_golden, phase_det_train_main,
+                  phase_det_train_profile, phase_det_train_cli,
+                  phase_path_shapes, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -35,11 +35,29 @@
 // feats and g in shared memory, 32 hits per stage in a ring of 2 filled
 // with cp.async (a padding hit is zero-filled in both), and runs
 // (Ci x 32) @ (32 x Co) per stage on mma.sync: 3xTF32 for float32, one bf16
-// MMA for bfloat16 (mma_sm90.cuh). Each warp holds a 16 x 32 float32 tile of
-// the sum in registers and writes it once to the item's slot of a scratch
-// buffer. A second small kernel adds each tap's items in index order. No
-// atomics: two runs are bit-equal. Channels past Ci / Co read whatever
-// shared memory holds and only feed outputs that are dropped.
+// MMA for bfloat16 (mma_sm90.cuh), each k-step's MMAs into a fresh
+// accumulator that is then added into the item's sum with a float32 add.
+// Each warp holds a 16 x 32 float32 tile of that sum in registers and
+// writes it once, in float64, to the item's slot of a scratch buffer. A
+// second small kernel adds each tap's items in index order in float64. No
+// atomics: two runs are bit-equal.
+//
+// Why the fresh k-step accumulators: a weight gradient can cancel hard. The
+// det stem's (5 -> 16) reads the voxel means, whose intensity column sits
+// near 127 on every row, against an output gradient that a BatchNorm leaves
+// with a zero sum over the rows: its center tap's sum is ~1,000 times
+// smaller than the sum of its products' magnitudes, so every rounding of a
+// partial sum counts a thousand times. With a stage's 12 MMAs chained into
+// one accumulator (the tensor core's accumulation does not round to
+// nearest) the kernel missed the float64 result by 1.1-1.6e-5 of dW's
+// largest entry; with a fresh accumulator for each k-step's 3 MMAs, by
+// 3.3-4.9e-6, as PyTorch's float32 matmul twin (3.0-6.3e-6), at the same
+// speed. The items' partials, which cancel the same way, are kept and added
+// in float64. Keeping each float32 add's rounding error as well (TwoSum)
+// gained little more on this data and cost 15-30% of the time.
+//
+// Channels past Ci / Co read whatever shared memory holds and only feed
+// outputs that are dropped.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
 // entry point, loaded with ctypes; see link_tpu_torch/ops/kernels.py).
@@ -71,7 +89,7 @@ gather_wgrad_kernel(const T* __restrict__ feats, int ci,
                     const int* __restrict__ hit_i,
                     const int* __restrict__ hit_j,
                     const int* __restrict__ tap_off, int k, int per_item,
-                    int co_tiles, float* __restrict__ partial, int vec_f,
+                    int co_tiles, double* __restrict__ partial, int vec_f,
                     int vec_g) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* fs = reinterpret_cast<T*>(smem);
@@ -171,20 +189,15 @@ gather_wgrad_kernel(const T* __restrict__ feats, int ci,
       cp_async_commit();
     }
 
-    // c: the item's sum; d: one stage's, added into c with a float32 add
-    // (mma_sm90.cuh: a long chain of MMA accumulations drifts; a stage's is
-    // 12 MMAs from zero).
-    float c[4][4], d[4][4];
+    // c: the item's sum; e: one k-step's MMAs from zero (mma_sm90.cuh: a
+    // chain of MMA accumulations drifts), added into c.
+    float c[4][4];
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) c[nt][q] = 0.f;
 
     for (int s = 0; s < nstages; ++s) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) d[nt][q] = 0.f;
       cp_async_wait<NSTAGE - 2>();
       __syncthreads();
       if (s + NSTAGE - 1 < nstages)
@@ -217,8 +230,11 @@ gather_wgrad_kernel(const T* __restrict__ feats, int ci,
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
               if (wn + nt * 8 >= gw) break;
-              mma_3xtf32(d[nt], ah, al, bh[nt][0], bh[nt][1], bl[nt][0],
+              float e[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(e, ah, al, bh[nt][0], bh[nt][1], bl[nt][0],
                          bl[nt][1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) c[nt][q] += e[q];
             }
           }
         }
@@ -240,21 +256,20 @@ gather_wgrad_kernel(const T* __restrict__ feats, int ci,
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
               if (wn + nt * 8 >= gw) break;
-              mma_bf16(d[nt], a, b[nt >> 1][(nt & 1) * 2],
+              float e[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(e, a, b[nt >> 1][(nt & 1) * 2],
                        b[nt >> 1][(nt & 1) * 2 + 1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) c[nt][q] += e[q];
             }
           }
         }
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) c[nt][q] += d[nt][q];
     }
     cp_async_wait<0>();
 
     // 3. The item's partial tile, written once to its own slot.
-    float* out = partial + (long long)item * ci * co;
+    double* out = partial + (long long)item * ci * co;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = wm + gq + 8 * h;
@@ -273,8 +288,8 @@ gather_wgrad_kernel(const T* __restrict__ feats, int ci,
 }
 
 // dw[tap][e] = sum of the tap's items' partial[item][e], items in index
-// order (0 for a tap without a hit).
-__global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
+// order, in float64 (0 for a tap without a hit).
+__global__ void wgrad_reduce_kernel(const double* __restrict__ partial,
                                     const int* __restrict__ tap_off, int k,
                                     int per_item, int cc,
                                     float* __restrict__ dw) {
@@ -286,11 +301,11 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
   for (int kk = 0; kk < tap; ++kk)
     first += (tap_off[kk + 1] - tap_off[kk] + per_item - 1) / per_item;
   const int items = (tap_off[tap + 1] - tap_off[tap] + per_item - 1) / per_item;
-  float s = 0.f;
+  double s = 0.0;
 #pragma unroll 8
   for (int it = first; it < first + items; ++it)
     s += partial[(long long)it * cc + within];
-  dw[e] = s;
+  dw[e] = (float)s;
 }
 
 // ---------------------------------------------------------------- work list
@@ -421,13 +436,13 @@ int launch(const void* feats, int ci, const void* g, int m, int co,
   kern<<<grid, NT, smem_bytes<T>(), stream>>>(
       (const T*)feats, ci, (const T*)g, m, co, (const int*)hit_i,
       (const int*)hit_j, (const int*)tap_off, k, per_item, co_tiles,
-      (float*)partial, copy_vec(feats, (long long)ci * sizeof(T)),
+      (double*)partial, copy_vec(feats, (long long)ci * sizeof(T)),
       copy_vec(g, (long long)co * sizeof(T)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long elems = (long long)k * ci * co;
   wgrad_reduce_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(
-      (const float*)partial, (const int*)tap_off, k, per_item, ci * co,
+      (const double*)partial, (const int*)tap_off, k, per_item, ci * co,
       (float*)dw);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,7 @@ schedule from a config (counterpart of `link_tpu/models/builder.py:46-109,
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -65,8 +66,13 @@ def make_lr_schedule(cfg, world_size: int = 1):
         return schedules.cosine_warmup(
             base_lr, cfg.num_epochs, cfg.batch_size * world_size,
             cfg.data.training_size, world_size)
-    raise NotImplementedError(
-        f"scheduler {s!r} is not ported yet (cosine_warmup and none are)")
+    if s == "cosine":
+        # optax.cosine_decay_schedule(base_lr, num_epochs), stepped per
+        # iteration as the JAX builder steps it
+        n = cfg.num_epochs
+        return lambda step: base_lr * 0.5 * (
+            1 + math.cos(math.pi * min(step, n) / n))
+    raise NotImplementedError(s)
 
 
 def make_optimizer(cfg, params, lr: float) -> torch.optim.Optimizer:
@@ -76,6 +82,11 @@ def make_optimizer(cfg, params, lr: float) -> torch.optim.Optimizer:
     if o.name == "sgd":
         return make_sgd(params, lr, momentum=o.momentum,
                         weight_decay=o.weight_decay, nesterov=o.nesterov)
-    raise NotImplementedError(
-        f"optimizer {o.name!r} is not ported yet (sgd is; adam and adamw "
-        "come with det training)")
+    if o.name == "adam":
+        # coupled L2 before Adam (optax add_decayed_weights then
+        # scale_by_adam with its default betas and eps)
+        return torch.optim.Adam(params, lr=lr, weight_decay=o.weight_decay)
+    if o.name == "adamw":
+        # optax.adamw's defaults: decoupled decay on every parameter
+        return torch.optim.AdamW(params, lr=lr, weight_decay=o.weight_decay)
+    raise NotImplementedError(o.name)

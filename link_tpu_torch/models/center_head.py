@@ -1,15 +1,21 @@
-"""CenterHead: CenterPoint multi-task detection head and box decode.
+"""CenterHead: CenterPoint multi-task detection head, its losses and box
+decode.
 
 PyTorch counterpart of `link_tpu/models/center_head.py` (reference
-detection/det3d/models/bbox_heads/center_head.py:67-446), inference path
-with `dcn_head=False` (every published LinK config), and the rotated NMS on
-the device (`device_nms`, through the `rotated_nms` kernel). Six task
+detection/det3d/models/bbox_heads/center_head.py:67-446 and
+losses/centernet_loss.py:6-62) with `dcn_head=False` (every published LinK
+config): the head, the training loss (`center_head_loss`: FastFocal on the
+heatmaps + weight * code-weighted masked L1 on the boxes), the decode, and
+the rotated NMS on the device (`device_nms`, through the `rotated_nms`
+kernel). Six task
 groups over the nuScenes classes; per task a SepHead with branches reg(2) /
 height(1) / dim(3) / rot(2) / vel(2) / hm(C), each Conv3x3 + BN + ReLU ->
 Conv3x3 (hm's final bias -2.19). Module layout and `state_dict` keys follow the
 reference (`shared_conv.0.weight`, `tasks.0.reg.3.bias`, ...). As in the
-JAX package the head returns per-task dicts of NHWC maps, and the decode
-runs in float32 whatever the compute dtype.
+JAX package the head returns per-task dicts of NHWC maps: the convs run
+NCHW and `SepHead.forward` is the one place that permutes, so the losses,
+`assign_label`'s hm (H, W, C) and the decode all read channels last. The
+decode runs in float32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..ops.kernels import rotated_nms
 from .rpn import _DTYPES, run_dense
 
 HEAD_NORM = dict(eps=1e-5, momentum=0.1)
+CODE_WEIGHTS = (1.0,) * 6 + (0.2, 0.2, 1.0, 1.0)
 NUSC_TASKS = (("car",), ("truck", "construction_vehicle"),
               ("bus", "trailer"), ("barrier",), ("motorcycle", "bicycle"),
               ("pedestrian", "traffic_cone"))
@@ -93,6 +100,68 @@ class CenterHead(nn.Module):
         """x: (B, C, H, W) -> per-task dicts of (B, H, W, c) maps."""
         h = run_dense(self.shared_conv, x.to(self.dtype))
         return [task(h) for task in self.tasks]
+
+
+def _gather_feat(fmap: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """fmap (B, H*W, C), ind (B, M) int64 -> (B, M, C)."""
+    return torch.gather(fmap, 1, ind[..., None].expand(-1, -1, fmap.shape[2]))
+
+
+def fast_focal_loss(out: torch.Tensor, target: torch.Tensor,
+                    ind: torch.Tensor, mask: torch.Tensor,
+                    cat: torch.Tensor) -> torch.Tensor:
+    """CornerNet focal loss (centernet_loss.py:26-54). out / target
+    (B, H, W, C), out already sigmoid-clamped; ind / mask / cat (B, M). The
+    positive count is float32, as in both references."""
+    gt = torch.pow(1 - target, 4)
+    neg_loss = torch.sum(torch.log(1 - out) * out.square() * gt)
+    b, h, w, c = out.shape
+    pos_pix = _gather_feat(out.reshape(b, h * w, c), ind)       # (B, M, C)
+    pos_pred = torch.gather(pos_pix, 2, cat[..., None])[..., 0]
+    m = mask.to(torch.float32)
+    num_pos = m.sum()
+    pos_loss = torch.sum(torch.log(torch.clamp_min(pos_pred, 1e-12))
+                         * (1 - pos_pred).square() * m)
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / torch.clamp_min(num_pos, 1.0))
+
+
+def reg_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
+             target: torch.Tensor) -> torch.Tensor:
+    """Masked per-channel L1 (centernet_loss.py:6-24). output (B, H, W, D),
+    target (B, M, D); returns the (D,) per-channel loss."""
+    b, h, w, d = output.shape
+    pred = _gather_feat(output.reshape(b, h * w, d), ind)       # (B, M, D)
+    m = mask.to(torch.float32)[..., None]
+    loss = torch.abs(pred * m - target * m)
+    loss = loss / (m.sum() + 1e-4)
+    return loss.sum(dim=(0, 1))
+
+
+def center_head_loss(preds: List[Dict[str, torch.Tensor]], example: Dict,
+                     weight: float = 0.25, code_weights=CODE_WEIGHTS):
+    """center_head.py:252-293. `preds` the head's per-task NHWC maps;
+    `example` per-task stacked targets (`det_pipeline.det_targets`): hm[t]
+    (B, H, W, C_t), anno_box[t] (B, M, 10), ind / mask / cat[t] (B, M).
+    Returns (loss, logs) with logs {hm_loss_t, loc_loss_t, loss}."""
+    total = 0.0
+    logs = {}
+    for t, pd in enumerate(preds):
+        hm = torch.clamp(torch.sigmoid(pd["hm"]), 1e-4, 1 - 1e-4)
+        hm_loss = fast_focal_loss(hm, example["hm"][t], example["ind"][t],
+                                  example["mask"][t], example["cat"][t])
+        anno = torch.cat([pd["reg"], pd["height"], pd["dim"], pd["vel"],
+                          pd["rot"]], dim=-1)
+        box_loss = reg_loss(anno, example["mask"][t], example["ind"][t],
+                            example["anno_box"][t])
+        cw = torch.tensor(code_weights, dtype=box_loss.dtype,
+                          device=box_loss.device)
+        loc_loss = torch.sum(box_loss * cw)
+        total = total + hm_loss + weight * loc_loss
+        logs[f"hm_loss_{t}"] = hm_loss
+        logs[f"loc_loss_{t}"] = loc_loss
+    logs["loss"] = total
+    return total, logs
 
 
 def decode_boxes(preds: List[Dict[str, torch.Tensor]], test_cfg: Dict,

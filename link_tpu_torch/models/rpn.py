@@ -10,7 +10,14 @@ The dense 2-D convs stay PyTorch convolutions, as `link_tpu` leaves them
 to XLA.
 
 `dtype` is the compute dtype: convs run in it (weights cast, parameters
-stay float32) and BatchNorm normalizes in float32 and rounds back.
+stay float32; in float64 the caller keeps float64 parameters) and BatchNorm
+normalizes in float32, or float64, and rounds back.
+
+BatchNorm in training normalizes with the batch statistics, as torch does,
+and moves its running statistics as flax `nn.BatchNorm` moves JAX's: by the
+biased batch variance E[x^2] - E[x]^2, where torch's `F.batch_norm` takes
+the unbiased one (`batch_norm_2d`). Reference det3d trains with torch's
+update; both packages differ from it there.
 """
 
 from __future__ import annotations
@@ -22,13 +29,35 @@ import torch.nn.functional as F
 from torch import nn
 
 RPN_NORM = dict(eps=1e-3, momentum=0.01)
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
+
+
+def batch_norm_2d(mod: nn.BatchNorm2d, h: torch.Tensor) -> torch.Tensor:
+    """`mod` over NCHW `h` in float32 (float64 stays float64). Eval mode
+    reads the running statistics; training normalizes with the batch's
+    and moves the running ones by `mod.momentum` towards the batch mean and
+    the biased batch variance (flax's update)."""
+    x = h.to(torch.promote_types(h.dtype, torch.float32))
+    if not mod.training:
+        return F.batch_norm(x, mod.running_mean, mod.running_var, mod.weight,
+                            mod.bias, False, 0.0, mod.eps)
+    with torch.no_grad():
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min(x.square().mean(dim=(0, 2, 3)) - mean.square(),
+                              0.0)
+        for buf, batch in ((mod.running_mean, mean), (mod.running_var, var)):
+            buf.mul_(1 - mod.momentum).add_(mod.momentum * batch.to(buf.dtype))
+        mod.num_batches_tracked.add_(1)
+    return F.batch_norm(x, None, None, mod.weight, mod.bias, True, 0.0,
+                        mod.eps)
 
 
 def run_dense(seq: nn.Sequential, h: torch.Tensor) -> torch.Tensor:
     """Apply a Sequential of ZeroPad2d / Conv2d / ConvTranspose2d /
     BatchNorm2d / ReLU in the dtype of `h`: conv weights and biases are
-    cast to it, BatchNorm runs in float32 and rounds back."""
+    cast to it, BatchNorm runs in float32 (`batch_norm_2d`) and rounds
+    back."""
     dt = h.dtype
     for mod in seq:
         if isinstance(mod, nn.Conv2d):
@@ -39,9 +68,7 @@ def run_dense(seq: nn.Sequential, h: torch.Tensor) -> torch.Tensor:
             h = F.conv_transpose2d(h, mod.weight.to(dt), bias, mod.stride,
                                    mod.padding)
         elif isinstance(mod, nn.BatchNorm2d):
-            h = F.batch_norm(h.float(), mod.running_mean, mod.running_var,
-                             mod.weight, mod.bias, mod.training,
-                             mod.momentum, mod.eps).to(dt)
+            h = batch_norm_2d(mod, h).to(dt)
         else:
             h = mod(h)
     return h

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of `link_tpu/models/voxelnet.py` (reference
 detection/det3d/models/detectors/voxelnet.py:10-96 and
-readers/voxel_encoder.py:8-25), inference path. Submodules are named
-`backbone`, `neck` and `bbox_head` as in the reference `state_dict`.
+readers/voxel_encoder.py:8-25), for serving and training
+(`train/det_trainer.py`). Submodules are named `backbone`, `neck` and
+`bbox_head` as in the reference `state_dict`.
 """
 
 from __future__ import annotations

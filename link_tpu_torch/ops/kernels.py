@@ -15,7 +15,9 @@ Eight kernels. Three are ports of the Pallas kernels of
     feature gradient, over the inverse kernel map with W[k]^T.
   * `window_conv` (csrc/window_conv.cu) replaces `onehot_window_conv`
     (:179-276): the same sum with input rows addressed as base_pos[g, m] +
-    slot[t, m] for tap t of group g.
+    slot[t, m] for tap t of group g. In training it also computes the
+    feature gradient of a window-form submanifold conv, over the plan's own
+    windows with W[mirror[t]]^T.
 
 Two have no Pallas counterpart:
 
@@ -735,7 +737,7 @@ def gather_wgrad(feats: torch.Tensor, g: torch.Tensor,
     if work.hit_i.numel() != k * n or work.tap_off.numel() != k + 1:
         raise ValueError("gather_wgrad: the work list is not bwd_idx's")
     items = -(-k * n // WGRAD_ITEM_HITS) + k
-    partial = torch.empty((items, ci, co), dtype=torch.float32,
+    partial = torch.empty((items, ci, co), dtype=torch.float64,
                           device=feats.device)
     rc = _entry(gather_wgrad)(
         feats.data_ptr(), n, ci, g.data_ptr(), m, co, work.hit_i.data_ptr(),

@@ -13,7 +13,11 @@ over the inverse map (feature gradient) and the `gather_wgrad` kernel
 conv over sorted input rows whose caller prefers the window form gives
 its plan the window arrays (base_pos, slot, groups) and runs through the
 hand-written `window_conv` kernel when a whole G-row window is narrow
-enough (`window_chunk`, as `link_tpu` decides). Every plan's join runs
+enough (`window_chunk`, as `link_tpu` decides); when a gradient is needed
+it runs through `WindowConv`, whose feature gradient is the same kernel
+over the plan's own windows with mirrored, transposed weights and whose
+weight gradient is `gather_wgrad` over the mirrored map, as
+`_gm_win_factory` of the JAX package. Every plan's join runs
 through the `sorted_join` kernel (`link_tpu_torch/ops/kernels.py`), one
 call per plan: the window arrays come from the same call when the first
 conv to build the plan prefers the window form.
@@ -129,6 +133,19 @@ def uses_window(plan: ConvPlan, feats: torch.Tensor,
     return window_chunk(plan.window, c, feats.element_size()) >= plan.window
 
 
+_mirror_tables = {}
+
+
+def _mirror_index(mirror: Tuple[int, ...], device) -> torch.Tensor:
+    """The tap permutation as an int64 tensor on `device`, cached per
+    (mirror, device) so that a backward copies nothing from the host."""
+    key = (mirror, str(device))
+    idx = _mirror_tables.get(key)
+    if idx is None:
+        idx = _mirror_tables[key] = torch.tensor(mirror, device=device)
+    return idx
+
+
 def plan_bwd_idx(plan: ConvPlan) -> torch.Tensor:
     """Inverse of the plan's forward map, (K, N_in): bwd_idx[k, i] == j iff
     in_idx[k, j] == i. A submanifold plan's is its own map with the taps
@@ -137,8 +154,8 @@ def plan_bwd_idx(plan: ConvPlan) -> torch.Tensor:
     apply, which costs nothing under jit)."""
     if plan.bwd_idx is None:
         if plan.mirror is not None:
-            mir = torch.tensor(plan.mirror, device=plan.in_idx.device)
-            plan.bwd_idx = plan.in_idx[mir]
+            plan.bwd_idx = plan.in_idx[_mirror_index(plan.mirror,
+                                                     plan.in_idx.device)]
         else:
             if plan.inv_idx is None:
                 plan.inv_idx = invert_plan(plan)
@@ -193,6 +210,54 @@ class GatherConv(torch.autograd.Function):
         return d_feats, d_weight, None, None, None
 
 
+class WindowConv(torch.autograd.Function):
+    """The window-form conv of a submanifold plan with a mirror, with its
+    backward (link_tpu/sparse/conv.py:488-535, `_gm_win_factory`):
+
+        out     = window_conv(feats, base_pos, slot, groups, W)
+        d_feats = window_conv(g, base_pos, slot, groups, W[mirror]^T)
+        d_W[k]  = sum_i feats[i]^T (x) g[in_idx[mirror[k], i]]   (gather_wgrad)
+
+    The feature gradient reads g through the plan's own windows: output
+    and input rows are one set, and tap t's inverse is tap mirror[t]. It is
+    skipped when feats need no gradient (the stem reads the voxel means).
+    Where Ci != Co and feats need a gradient, a whole window of the
+    Co-wide g must fit one chunk (`window_chunk`), as `uses_window`
+    requires of feats; where it does not, the conv raises rather than take
+    another form for the backward."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, plan):
+        ci, co = weight.shape[1], weight.shape[2]
+        if (ctx.needs_input_grad[0] and ci != co and window_chunk(
+                plan.window, co, feats.element_size()) < plan.window):
+            raise ValueError(
+                f"WindowConv: a window of {plan.window} rows of the "
+                f"{co}-channel gradient exceeds one chunk, so its feature "
+                "gradient cannot take the window form")
+        ctx.save_for_backward(feats, weight)
+        ctx.plan = plan
+        return kernels.window_conv(feats, plan.base_pos, plan.slot,
+                                   plan.groups, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight = ctx.saved_tensors
+        plan = ctx.plan
+        g = g.contiguous()
+        d_feats = d_weight = None
+        if ctx.needs_input_grad[0]:
+            mir = _mirror_index(plan.mirror, weight.device)
+            d_feats = kernels.window_conv(
+                g, plan.base_pos, plan.slot, plan.groups,
+                weight[mir].transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            d_weight = kernels.gather_wgrad(
+                feats, g, plan_bwd_idx(plan),
+                plan_wgrad_work(plan)).to(weight.dtype)
+        return d_feats, d_weight, None
+
+
 def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
                     plan: ConvPlan, transposed: bool = False,
                     prefer_window: bool = False) -> torch.Tensor:
@@ -201,7 +266,8 @@ def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
     transposed conv gathers over the plan's inverse map, so feats live on
     the plan's output side and the result on its input side. When autograd
     needs a gradient of feats or weight, the gather form runs through
-    `GatherConv`; the window form has no backward yet and raises."""
+    `GatherConv` and the window form through `WindowConv`: the form is the
+    same in training as in inference, as in the JAX package."""
     needs_grad = torch.is_grad_enabled() and (feats.requires_grad
                                               or weight.requires_grad)
     if transposed:
@@ -214,10 +280,7 @@ def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
         return kernels.gather_conv(feats, plan.inv_idx, weight)
     if uses_window(plan, feats, prefer_window):
         if needs_grad:
-            raise NotImplementedError(
-                "the window-form conv has no backward: run it under "
-                "torch.no_grad(), or do not prefer the window form when "
-                "training")
+            return WindowConv.apply(feats, weight, plan)
         return kernels.window_conv(feats, plan.base_pos, plan.slot,
                                    plan.groups, weight)
     if needs_grad:

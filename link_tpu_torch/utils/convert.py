@@ -16,6 +16,9 @@ layouts, Linear and Conv2d transposes, the ConvTranspose spatial flip).
 `to_jax_flat` goes the other way for the ELKUNet: a port `state_dict`, or
 the gradients by parameter name, onto the flat names of the JAX trees, so
 gradients and updated parameters can be compared leaf by leaf.
+`grads_state_dict` gives any model's gradients in its reference-keyed
+`state_dict` layout, which the JAX package's `translate_*` functions map
+onto its trees.
 """
 
 from __future__ import annotations
@@ -177,6 +180,16 @@ def from_jax_spvcnn(params: Dict[str, Any], batch_stats: Dict[str, Any]
              s["SparseBatchNorm_0"])
     b.linear("classifier.0", params["classifier"])
     return b.sd
+
+
+def grads_state_dict(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The model's `state_dict` as numpy arrays with every parameter
+    replaced by its gradient (zeros where it has none) and the buffers as
+    they are: the reference layout the `translate_*` functions read."""
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for k, p in model.named_parameters()}
+    return {k: grads.get(k, v).detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
 
 
 def load_reference_state_dict(model: torch.nn.Module,

@@ -262,18 +262,28 @@ def test_aux_to_voxel_takes_the_inverse_map_only_for_odd_windows(monkeypatch):
 
 
 def test_window_form_raises_when_a_gradient_is_asked():
+    """A window-form conv trains (`WindowConv`), but where Ci != Co and the
+    feature gradient's Co-wide window exceeds one chunk it raises instead
+    of taking another form; its weight gradient alone still runs."""
     rng = np.random.default_rng(7)
     pf, pc, nnz = _random_sparse(rng, 300, CAP, C, sort=True)
-    w = torch.from_numpy(rng.normal(size=(27, C, CO)).astype(np.float32))
+    wide = 32                 # 3 rows of 128 B: over the 256 B chunk
+    w = torch.from_numpy(rng.normal(size=(27, C, wide)).astype(np.float32))
     st = make_sparse_tensor(pf, pc, nnz=nnz, device="cpu", base_sorted=True)
     with torch.no_grad():
         want = tconv.conv3d(st, w, 3, prefer_window=True).feats
     plan = st.kmaps[("plan", (1, 1, 1), (3, 3, 3), (1, 1, 1), (1, 1, 1))]
     assert tconv.uses_window(plan, st.feats, True)
-    with pytest.raises(NotImplementedError, match="window-form"):
-        tconv.conv3d(st, w.clone().requires_grad_(), 3, prefer_window=True)
-    # without the preference the same conv differentiates, same forward
-    wg = w.clone().requires_grad_()
-    got = tconv.conv3d(st, wg, 3).feats
-    got.sum().backward()
-    assert _rel(got.detach(), want) < F32_TOL and wg.grad is not None
+    grad_st = st.replace(feats=st.feats.clone().requires_grad_())
+    with pytest.raises(ValueError, match="chunk"):
+        tconv.conv3d(grad_st, w, 3, prefer_window=True)
+    # the weight gradient alone takes the window form, equal to the
+    # gather form's
+    grads = []
+    for prefer in (True, False):
+        wg = w.clone().requires_grad_()
+        got = tconv.conv3d(st, wg, 3, prefer_window=prefer).feats
+        got.sum().backward()
+        assert _rel(got.detach(), want) < F32_TOL
+        grads.append(wg.grad)
+    assert _rel(grads[0], grads[1]) < F32_TOL

@@ -87,8 +87,9 @@ def items_of(tap_off: np.ndarray, per_item: int):
 
 
 def wgrad_by_items(feats, g, bwd, per_item):
-    """gather_wgrad's algorithm on the CPU: one float32 partial tile per
-    item, then each tap's items summed in index order."""
+    """gather_wgrad's algorithm on the CPU: one partial tile per item (the
+    kernel keeps it in float64), then each tap's items summed in index
+    order in float64."""
     work = kernels.wgrad_work_list(bwd)
     k, n = bwd.shape
     m = g.shape[0]
@@ -100,11 +101,11 @@ def wgrad_by_items(feats, g, bwd, per_item):
         j = work.hit_j[h0:h1].long()
         gj = torch.where((j < m)[:, None], g[j.clamp(max=m - 1)],
                          torch.zeros(()))
-        partial.append(feats[i].T @ gj)
-    dw = torch.zeros((k, feats.shape[1], g.shape[1]))
+        partial.append((feats[i].T @ gj).double())
+    dw = torch.zeros((k, feats.shape[1], g.shape[1]), dtype=torch.float64)
     for (kk, _, _), p in zip(items, partial):
         dw[kk] += p
-    return dw, items
+    return dw.float(), items
 
 
 @pytest.mark.parametrize("n, per_item", [(1000, 64), (1000, 1024),
