@@ -121,6 +121,31 @@ Phases, in order (any failure raises and the script exits non-zero):
                  memory;
  14. train_profile one more step under torch.profiler: device time by kernel,
                  idle share, and the forward / backward / optimizer split;
+ 14a. seg_families_train ELKEncoder, MinkUNet and SPVCNN each trained by
+                 its config's recipe (cr 1.0, the config's capacities x
+                 batch 2, float32, SGD under cosine_warmup; SPVCNN with its
+                 seeded dropout) on batches read back through
+                 `SemanticKITTI` from a tree of synthetic 120k-point scans
+                 written in the dataset's layout to a temporary directory:
+                 1 warm and 6 timed steps (ms per step, launches of each
+                 kernel in one step against the expected counts, peak
+                 memory), then one step profiled (device busy ms, idle
+                 share, the join-site check);
+ 14a'. seg_families_train_grad one step of each of the three at the
+                 tests' tiny size (cr 0.125, capacities (384, 192, 96, 48,
+                 24), two synthetic scans of seed 11; SPVCNN without
+                 dropout) on the card against the CPU: loss, and every
+                 gradient < 1e-4 of the largest, the CPU's ReLUs given the
+                 card's side as in det_train_grad;
+ 14a''. seg_files `seg_train` without --synthetic on the written tree
+                 (MinkUNet's recipe, 2 epochs, the second resumed), then
+                 `seg_evaluate` on its checkpoint: --tta 1 against the
+                 plain forward (equal but for softmax ties, at most 1e-4
+                 of the points), --tta 4 (finite votes), --split test
+                 --save-labels (one uint32 per point of each test scan);
+                 then `train_supervisor` over a child that exits 17 after
+                 epoch 1 and completes on its relaunch (the tools' output
+                 in chiprun_out/seg_files.log);
  14b. det_train_kernels `window_conv` and the backward of the window-form
                  conv (`WindowConv`) at the det step's level-0 plan (two
                  synthetic frames at 327,680 rows): the forward at 5 -> 16
@@ -169,6 +194,12 @@ Phases, in order (any failure raises and the script exits non-zero):
                  launches per scan), and `sorted_join` exactly against its
                  twin at every call of the new join sites
                  (`upsample_voxel`, `voxel_to_point`, `point_to_voxel`);
+                 then one more training step of each of the three
+                 families (14a): `gather_conv` against its twin and
+                 `gather_wgrad` against the float64 sum (< 1e-5 of the
+                 largest entry) at every shape of each step, on its own
+                 inputs, each timed beside its bound with its launches per
+                 step;
  16. probes      every case of `link_tpu_torch.tools.probe_gather` (the
                  Mosaic probes' shapes and the port's own), each exact
                  against its twin, timed beside its bound and the library
@@ -2168,6 +2199,388 @@ def phase_train_profile(res, ctx):
 
 
 # --------------------------------------------------------------------------
+# the other seg families' training, on SemanticKITTI-format files
+
+# scans written in the dataset's layout: train (00), val (08), test (11)
+KITTI_TREE = {"00": 8, "08": 2, "11": 2}
+KITTI_RAW_POINTS = 120000
+FAMILY_TRAIN_BATCHES = 4
+# the tests' tiny size (tests/torch_train_family.py)
+TINY_CAPS = (384, 192, 96, 48, 24)
+TINY_CR = 0.125
+SEG_FILES_LOG = os.path.join(HERE, "chiprun_out", "seg_files.log")
+TTA1_MISMATCH = 1e-4   # share of points where --tta 1 may differ from the
+#                        plain forward: argmax of the softmax, not of the
+#                        logits, so two logits within float rounding tie
+
+
+def _kitti_tree(ctx) -> str:
+    """A SemanticKITTI tree of synthetic scans (KITTI_TREE) in a temporary
+    directory, removed at exit; written once."""
+    if "kitti_root" not in ctx:
+        import atexit
+        import shutil
+        import tempfile
+        from link_tpu_torch.data.semantic_kitti import write_synthetic_tree
+        root = tempfile.mkdtemp(prefix="kitti_")
+        atexit.register(shutil.rmtree, root, True)
+        t0 = time.perf_counter()
+        write_synthetic_tree(root, KITTI_TREE, KITTI_RAW_POINTS, seed=0)
+        log(f"SemanticKITTI tree {KITTI_TREE} of {KITTI_RAW_POINTS}-point "
+            f"scans written in {time.perf_counter() - t0:.1f} s")
+        ctx["kitti_root"] = root
+    return ctx["kitti_root"]
+
+
+def phase_seg_families_train(res, ctx, timed_steps=6):
+    """Each of ELKEncoder, MinkUNet and SPVCNN trained by its config's
+    recipe (cr 1.0, the config's capacities x batch 2, float32, SGD under
+    cosine_warmup, SPVCNN's seeded dropout) on batches read back through
+    `SemanticKITTI` from a tree written in the dataset's layout: 1 warm and
+    `timed_steps` timed steps (ms per step, launches of each kernel in one
+    step against the expected counts, peak memory), then one step
+    profiled (device busy ms, idle share, the join-site check)."""
+    import torch
+    from link_tpu_torch.data.collate import collate_scans
+    from link_tpu_torch.data.semantic_kitti import SemanticKITTI
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.nn.modules import SparseConv3d
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import JOIN_INPUT_RANGE, JOIN_RANGE
+    from link_tpu_torch.train import trainer as T
+    from link_tpu_torch.utils.config import load_config
+
+    root = _kitti_tree(ctx)
+    cfgs = {name: load_config(_family_config(name)) for name in FAMILIES}
+    cfg0 = cfgs[FAMILIES[0]]
+    for name, cfg in cfgs.items():
+        if (cfg.batch_size != 2 or cfg.dataset.voxel_size != 0.05
+                or tuple(cfg.model.capacities) != DEFAULT_CAPACITIES):
+            raise AssertionError(f"{name}: the config's recipe changed")
+    caps = tuple(cfg0.batch_size * c for c in cfg0.model.capacities)
+    ds = SemanticKITTI(root, "train", cfg0.dataset.voxel_size,
+                       cfg0.dataset.num_points)
+    t0 = time.perf_counter()
+    batches = [collate_scans(
+        [ds.__getitem__(2 * s + k, np.random.default_rng(300 + s))
+         for k in range(2)], caps[0], ignore_label=cfg0.data.ignore_label)
+        for s in range(FAMILY_TRAIN_BATCHES)]
+    log(f"{len(batches)} batches of 2 scans read back through SemanticKITTI "
+        f"in {time.perf_counter() - t0:.1f} s: "
+        f"{[int(b['nnz']) for b in batches]} voxels")
+    res["family_train"], ctx["family_train"] = {}, {}
+    for name in FAMILIES:
+        cfg = cfgs[name]
+        model = builder.make_model(cfg, capacities=caps, dtype="float32",
+                                   device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+        lr = builder.make_lr_schedule(cfg)
+        opt = builder.make_optimizer(cfg, model.parameters(), lr(0))
+
+        def step(it, model=model, opt=opt, lr=lr,
+                 ignore=cfg.criterion.ignore_index):
+            return T.seg_train_step(model, opt, batches[it % len(batches)],
+                                    ignore_label=ignore, lr=lr(it))
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(0)["loss"])]                      # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for it in range(1, timed_steps + 1):
+            if it == 1:
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            m = step(it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if it == 1:
+                launches = {fn.__name__: fn.launches
+                            for fn in kernels.KERNELS}
+                builds = kernels.wgrad_work_list.builds
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        convs = sum(1 for mod in model.modules()
+                    if isinstance(mod, SparseConv3d)
+                    and math.prod(mod.kernel_size) > 1)
+        aux = (_elk_aux_paths(model, None) if name == "linkencoder"
+               else None)
+        joins = FAMILY_PLANS + (
+            aux.count("sparse") + 4 if name == "linkencoder"
+            else SPVCNN_POINT_JOINS if name == "spvcnn" else 0)
+        # as train_main: the stem's first conv needs no feature gradient
+        want = {"gather_conv": 2 * convs - 1, "gather_wgrad": convs,
+                "sorted_join": joins}
+        prof = _profile(lambda: step(timed_steps + 1), 1, min(times), "step",
+                        ranges=T.RANGES + (JOIN_RANGE, JOIN_INPUT_RANGE))
+        _check_join_sites(prof, "step", joins)
+        fam = {"ms_per_step": times, "losses": losses,
+               "launches_per_step": launches, "expected": want,
+               "work_list_builds": builds, "profile": prof,
+               "peak_mem_gb": peak / 2**30,
+               "resident_before_gb": resident / 2**30,
+               "voxels": [int(b["nnz"]) for b in batches],
+               "params": sum(p.numel() for p in model.parameters()),
+               "gather_conv_ms_per_step": _kernel_ms(
+                   prof, ("gather_conv", "w_frag"), "step"),
+               "gather_wgrad_ms_per_step": _kernel_ms(
+                   prof, ("gather_wgrad", "wgrad_reduce", "list_count",
+                          "list_scan", "list_write"), "step")}
+        res["family_train"][name] = fam
+        res[f"family_train_launches_{name}"] = launches
+        log(f"{name} training f32, batch 2, cr1.0 (config recipe): loss per "
+            f"step {[round(v, 4) for v in losses]}; ms per step "
+            f"{[round(v, 1) for v in times]} (median "
+            f"{float(np.median(times)):.1f}); device busy "
+            f"{prof['device_busy_ms_per_step'] or float('nan'):.2f} ms, "
+            f"idle share {prof['idle_share'] or float('nan'):.3f}; "
+            f"{prof['launches_per_step']:.0f} launches per step; kernel "
+            f"launches {launches} (expected {want}), {builds} work lists "
+            f"built; gather_conv {fam['gather_conv_ms_per_step']:.2f} ms, "
+            f"gather_wgrad {fam['gather_wgrad_ms_per_step']:.2f} ms per "
+            f"step; peak memory {fam['peak_mem_gb']:.2f} GB "
+            f"({fam['resident_before_gb']:.2f} GB resident before)")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: non-finite training loss {losses}")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: launch counts {launches} differ "
+                                 f"from the expected {want}")
+        if not 0 < builds <= 2 * FAMILY_PLANS:
+            raise AssertionError(f"{name}: {builds} work lists in one step")
+        no_grad = [k for k, p in model.named_parameters()
+                   if p.grad is None or not bool((p.grad != 0).any())]
+        if no_grad:
+            raise AssertionError(f"{name}: parameters without a gradient: "
+                                 f"{no_grad}")
+        ctx["family_train"][name] = step
+    ctx["family_train_next"] = timed_steps + 2
+
+
+def _tiny_family_model(name, device):
+    """The family at the tests' tiny size (cr 0.125, TINY_CAPS), seed 0;
+    the encoder at its config's r=3, s=7, groups 2, cos; SPVCNN without
+    dropout (the card's and the CPU's generators draw other masks)."""
+    import torch
+    from link_tpu_torch.models.linkencoder import ELKEncoder
+    from link_tpu_torch.models.minkunet import MinkUNet
+    from link_tpu_torch.models.spvcnn import SPVCNN
+    kw = dict(cr=TINY_CR, capacities=TINY_CAPS, device=device,
+              generator=torch.Generator().manual_seed(0))
+    if name == "linkencoder":
+        return ELKEncoder(20, r=3, s=7, groups=2, baseop="cos", **kw)
+    if name == "minkunet":
+        return MinkUNet(20, **kw)
+    return SPVCNN(20, dropout_rate=0.0, **kw)
+
+
+def phase_seg_families_train_grad(res, ctx):
+    """One training step of each family at the tests' tiny size (two
+    synthetic scans of seed 11, 0.4 m voxels) on the card against the same
+    step on the CPU: the loss, and every gradient within 1e-4 of the
+    largest gradient, the CPU's ReLUs given the card's side below
+    DET_TRAIN_FLIP of their call's largest |x|, as det_train_grad."""
+    import torch
+    from link_tpu_torch.data.collate import collate_scans
+    from link_tpu_torch.data.semantic_kitti import SyntheticSemanticKITTI
+    from link_tpu_torch.train import trainer as T
+
+    ds = SyntheticSemanticKITTI(length=2, num_points=(TINY_CAPS[0] - 64) // 2,
+                                n_raw_points=3000, voxel_size=0.4,
+                                split="train", seed=11)
+    batch = collate_scans([ds[0], ds[1]], TINY_CAPS[0])
+    res["family_train_grad"] = {}
+    for name in FAMILIES:
+        out, masks, flips = {}, None, []
+        for run, device, force in (("cuda", "cuda", False),
+                                   ("cpu", "cpu", True),
+                                   ("cpu unforced", "cpu", False)):
+            model = _tiny_family_model(name, device)
+            opt = T.make_sgd(model.parameters(), 0.05)
+            with ReluMasks(force=masks if force else None) as relus:
+                m = T.seg_train_step(model, opt, batch)
+            if run == "cuda":
+                masks = [mk.cpu() for mk in relus.masks]
+            elif force:
+                flips = relus.flips
+            out[run] = (float(m["loss"]),
+                        {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()
+                         if p.grad is not None})
+        (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
+        top, errs, leaf_errs = _grad_errs(grads_c, grads_g)
+        _, free_errs, _ = _grad_errs(out["cpu unforced"][1], grads_g)
+        worst = max(errs, key=errs.get)
+        leaf_worst = max(leaf_errs, key=leaf_errs.get)
+        free_worst = max(free_errs, key=free_errs.get)
+        res["family_train_grad"][name] = {
+            "loss_cpu": loss_c, "loss_cuda": loss_g, "worst": worst,
+            "worst_rel_err": errs[worst], "leaf_worst": leaf_worst,
+            "leaf_worst_rel_err": leaf_errs[leaf_worst],
+            "leaves": len(errs), "largest_gradient": top,
+            "relu_calls": len(masks), "relu_flips": flips,
+            "unforced_worst_rel_err": free_errs[free_worst]}
+        log(f"{name} train_grad (tiny, card vs CPU): loss cpu {loss_c:.6f} "
+            f"card {loss_g:.6f}; {len(errs)} gradients, worst "
+            f"{errs[worst]:.3g} of the largest {top:.4g} ({worst}; tol "
+            f"{TRAIN_GRAD_REL_TOL}); against its own leaf's largest "
+            f"{leaf_errs[leaf_worst]:.3g} ({leaf_worst}); ReLU flips "
+            f"{flips} of {len(masks)} calls; the CPU on its own sides: "
+            f"{free_errs[free_worst]:.3g} (not gated)")
+        if (sorted(grads_c) != sorted(grads_g)
+                or abs(loss_c - loss_g) > 1e-4 * abs(loss_c)
+                or not errs[worst] < TRAIN_GRAD_REL_TOL
+                or any(share >= DET_TRAIN_FLIP for _, _, share in flips)):
+            raise AssertionError(f"{name} train_grad: loss {loss_c} vs "
+                                 f"{loss_g}, worst gradient {worst} rel err "
+                                 f"{errs[worst]}, ReLU flips {flips}")
+
+
+def phase_seg_files(res, ctx):
+    """The seg tools on the written SemanticKITTI tree, on the card, with
+    MinkUNet's config recipe: `seg_train` without --synthetic for 2 epochs,
+    the second resumed (`--stop-after-epoch 1`, then `--resume auto`);
+    `seg_evaluate` on its checkpoint: `--tta 1` predicts what the plain
+    forward does (but for softmax ties, TTA1_MISMATCH), `--tta 4` gives
+    finite votes, `--split test --save-labels` writes one `.label` of a
+    uint32 per point for each test scan; then `train_supervisor` on a child
+    that exits 17 after checkpointing epoch 1 and completes on its
+    relaunch. The tools' own output goes to chiprun_out/seg_files.log."""
+    import contextlib
+    import json as _json
+    import shutil
+    import tempfile
+    from link_tpu_torch.data.semantic_kitti import SemanticKITTI
+    from link_tpu_torch.tools import seg_evaluate, seg_train
+
+    root = _kitti_tree(ctx)
+    config = _family_config("minkunet")
+    data = [f"dataset.root={root}"]
+    work = tempfile.mkdtemp(prefix="seg_files_")
+    out = {}
+    try:
+        run_dir = os.path.join(work, "run")
+        os.makedirs(os.path.dirname(SEG_FILES_LOG), exist_ok=True)
+        with open(SEG_FILES_LOG, "w") as logf, \
+                contextlib.redirect_stdout(logf):
+            t0 = time.perf_counter()
+            seg_train.main([config, "--run-dir", run_dir, "--epochs", "2",
+                            "--stop-after-epoch", "1", *data])
+            seg_train.main([config, "--run-dir", run_dir, "--epochs", "2",
+                            "--resume", "auto", *data])
+            out["train_s"] = time.perf_counter() - t0
+            ckpt = os.path.join(run_dir, "latest.pt")
+
+            def evaluate(name, *args):
+                return seg_evaluate.evaluate(seg_evaluate.parse_args(
+                    [config, ckpt, "--save-labels", os.path.join(work, name),
+                     *args, *data]))
+
+            t0 = time.perf_counter()
+            runs = {"plain": evaluate("plain"),
+                    "tta1": evaluate("tta1", "--tta", "1"),
+                    "tta4": evaluate("tta4", "--tta", "4"),
+                    "test": evaluate("test", "--split", "test")}
+            out["evaluate_s"] = time.perf_counter() - t0
+        text = open(SEG_FILES_LOG).read()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            epochs = {r["epoch"]: r for r in map(_json.loads, f)
+                      if "epoch" in r}
+        out["epochs"] = epochs
+        if sorted(epochs) != [1, 2] or "resumed" not in text or not all(
+                np.isfinite(r["loss/train"]) for r in epochs.values()):
+            raise AssertionError(f"seg_files: seg_train epochs {epochs}")
+        for name, r in runs.items():
+            out[name] = {k: r[k] for k in ("miou", "ms_per_scan", "scans",
+                                           "overflow_scans", "votes_finite",
+                                           "label_files")}
+        mismatch, points = 0, 0
+        for a, b in zip(runs["plain"]["label_files"],
+                        runs["tta1"]["label_files"]):
+            pa, pb = np.fromfile(a, np.uint32), np.fromfile(b, np.uint32)
+            if pa.shape != pb.shape:
+                raise AssertionError(f"seg_files: {a} and {b} differ in size")
+            mismatch += int((pa != pb).sum())
+            points += len(pa)
+        out["tta1_mismatch"] = [mismatch, points]
+        test_ds = SemanticKITTI(root, "test")
+        sizes = []
+        for path, label in zip(test_ds.files, runs["test"]["label_files"]):
+            n_points = os.path.getsize(path) // 16
+            sizes.append((n_points, os.path.getsize(label) // 4))
+        out["test_label_points"] = sizes
+        log(f"seg_files: seg_train on the tree, epochs "
+            f"{[(e, round(r['loss/train'], 4)) for e, r in epochs.items()]} "
+            f"(epoch 2 resumed) in {out['train_s']:.1f} s; seg_evaluate val "
+            f"mIoU plain {runs['plain']['miou']:.4f}, --tta 1 "
+            f"{runs['tta1']['miou']:.4f} ({mismatch} of {points} points "
+            f"differ), --tta 4 {runs['tta4']['miou']:.4f} (votes finite "
+            f"{runs['tta4']['votes_finite']}); --split test wrote "
+            f"{len(runs['test']['label_files'])} label files, (points, "
+            f"labels) {sizes}; ms per scan plain "
+            f"{[round(v, 1) for v in runs['plain']['ms_per_scan']]}, --tta 4 "
+            f"{[round(v, 1) for v in runs['tta4']['ms_per_scan']]}")
+        if (mismatch > TTA1_MISMATCH * points or not points
+                or runs["tta4"]["votes_finite"] is not True
+                or runs["test"]["miou"] is not None
+                or len(sizes) != KITTI_TREE["11"]
+                or any(p != n or p == 0 for p, n in sizes)):
+            raise AssertionError(f"seg_files: {out}")
+        out["supervisor"] = _supervised_run(config, root, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seg_files"] = out
+
+
+def _supervised_run(config, root, work):
+    """`python3 -m link_tpu_torch.tools.train_supervisor` over a child that
+    trains 1 epoch of `config` on the tree, exits 17 after checkpointing
+    it, and on its relaunch (given `--resume auto`) finishes epoch 2."""
+    import json as _json
+    run_dir = os.path.join(work, "supervised")
+    flag = os.path.join(work, "crashed_once")
+    wrapper = os.path.join(work, "flaky_train.py")
+    with open(wrapper, "w") as f:
+        f.write(f"""import os, subprocess, sys
+first = not os.path.exists({flag!r})
+cmd = [sys.executable, "-m", "link_tpu_torch.tools.seg_train", {config!r},
+       "--epochs", "2", "dataset.root={root}"] + (
+           ["--stop-after-epoch", "1"] if first else []) + sys.argv[1:]
+code = subprocess.call(cmd)
+if first:
+    open({flag!r}, "w").close()
+    sys.exit(17)
+sys.exit(code)
+""")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = HERE
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "link_tpu_torch.tools.train_supervisor",
+         "--max-restarts", "2", "--backoff", "0.01", "--", sys.executable,
+         wrapper, "--run-dir", run_dir], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    with open(SEG_FILES_LOG, "a") as f:
+        f.write(run.stdout + run.stderr)
+    epochs = []
+    if os.path.exists(os.path.join(run_dir, "metrics.jsonl")):
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            epochs = [r["epoch"] for r in map(_json.loads, f) if "epoch" in r]
+    out = {"rc": run.returncode, "epochs": epochs, "s": seconds,
+           "restarted": "child exited 17" in run.stdout}
+    log(f"train_supervisor: rc {run.returncode}, child exited 17 and was "
+        f"relaunched {out['restarted']}, epochs logged {epochs}, "
+        f"{seconds:.1f} s")
+    if (run.returncode != 0 or not out["restarted"] or epochs != [1, 2]
+            or "finished ok after 1 restart(s)" not in run.stdout):
+        raise AssertionError(f"train_supervisor: {out}; "
+                             f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # detection training
 
 
@@ -2760,11 +3173,11 @@ class ShapeRecorder:
     sees it, during one run of a main path: every call reaches the kernel
     as before, and the arguments of the first `gather_conv` and
     `gather_wgrad` call of each distinct shape and dtype are kept, with the
-    number of `gather_conv` calls of each (`conv_calls`)."""
+    number of calls of each (`conv_calls`, `wgrad_calls`)."""
 
     def __init__(self):
         self.conv, self.wgrad = {}, {}
-        self.conv_calls = {}
+        self.conv_calls, self.wgrad_calls = {}, {}
 
     def __enter__(self):
         from link_tpu_torch.sparse import conv as sconv
@@ -2779,7 +3192,9 @@ class ShapeRecorder:
             def gather_conv(feats, idx, weight):
                 key = (tuple(feats.shape), tuple(idx.shape),
                        tuple(weight.shape), str(feats.dtype))
-                rec.conv.setdefault(key, (feats, idx, weight))
+                # detached: a training step's tensors need no graph here
+                rec.conv.setdefault(key, (feats.detach(), idx,
+                                          weight.detach()))
                 rec.conv_calls[key] = rec.conv_calls.get(key, 0) + 1
                 return real.gather_conv(feats, idx, weight)
 
@@ -2787,7 +3202,9 @@ class ShapeRecorder:
             def gather_wgrad(feats, g, bwd_idx, work=None):
                 key = (tuple(feats.shape), tuple(g.shape),
                        tuple(bwd_idx.shape), str(feats.dtype))
-                rec.wgrad.setdefault(key, (feats, g, bwd_idx, work))
+                rec.wgrad.setdefault(key, (feats.detach(), g.detach(),
+                                           bwd_idx, work))
+                rec.wgrad_calls[key] = rec.wgrad_calls.get(key, 0) + 1
                 return real.gather_wgrad(feats, g, bwd_idx, work)
 
         sconv.kernels = View()
@@ -2955,6 +3372,55 @@ def phase_path_shapes(res, ctx, iters=10):
         "each equal to its twin")
     if sites != want:
         raise AssertionError(f"family join sites {sites}, expected {want}")
+    _family_train_shapes(res, ctx, kernels, recorders, iters)
+
+
+def _family_train_shapes(res, ctx, kernels, recorders, iters):
+    """`gather_conv` and `gather_wgrad` at every distinct shape of one more
+    training step of each seg family (`seg_families_train`), on the step's
+    own inputs (a shape an earlier path also gives them is held again): the
+    conv against its twin, `gather_wgrad` against the float64 sum, each
+    bit-equal over two runs and timed beside its bound, with its launches
+    per step."""
+    import torch
+    earlier = ({k for rec in recorders.values() for k in rec.conv}
+               | {k for rec in recorders.values() for k in rec.wgrad})
+    conv_cases, wgrad_cases = [], []
+    for name, step in ctx.pop("family_train").items():
+        with ShapeRecorder() as rec:
+            step(ctx["family_train_next"])
+        torch.cuda.synchronize()
+        for key, (feats, idx, weight) in rec.conv.items():
+            case = _conv_case(kernels, feats, idx, weight, iters,
+                              role=f"{name} training")
+            case["launches_per_step"] = rec.conv_calls[key]
+            case["new_shape"] = key not in earlier
+            conv_cases.append(case)
+        for key, (feats, g, bwd, work) in rec.wgrad.items():
+            case = _wgrad_case(kernels, feats, g, bwd, iters, work,
+                               role=f"{name} training")
+            case["launches_per_step"] = rec.wgrad_calls[key]
+            case["new_shape"] = key not in earlier
+            wgrad_cases.append(case)
+        del rec
+        torch.cuda.empty_cache()
+    res["family_train_conv_cases"] = conv_cases
+    res["family_train_wgrad_cases"] = wgrad_cases
+    worst = max((c["rel_err"] for c in wgrad_cases), default=float("nan"))
+    new = sum(c["new_shape"] for c in conv_cases + wgrad_cases)
+    log(f"family training shapes: gather_conv at {len(conv_cases)} and "
+        f"gather_wgrad at {len(wgrad_cases)} shapes of the three families' "
+        f"steps ({new} met on no earlier path), each within its tolerance "
+        f"and bit-equal over two "
+        f"runs (gather_wgrad's worst against the float64 sum {worst:.3g}); "
+        f"kernel / bound: gather_conv "
+        f"{sum(c['ms'] for c in conv_cases):.3f} / "
+        f"{sum(c['bound_ms'] for c in conv_cases):.3f} ms, gather_wgrad "
+        f"{sum(c['ms'] for c in wgrad_cases):.3f} / "
+        f"{sum(c['bound_ms'] for c in wgrad_cases):.3f} ms over the shapes")
+    if not conv_cases or not wgrad_cases:
+        raise AssertionError("the families' training steps gave the "
+                             "kernels no shapes")
 
 
 # --------------------------------------------------------------------------
@@ -3022,6 +3488,8 @@ KERNEL_CASE = {
 }
 MAIN_PATHS = {"seg": "launches",
               **{f"seg_{name}": f"family_launches_{name}" for name in FAMILIES},
+              **{f"train_{name}": f"family_train_launches_{name}"
+                 for name in FAMILIES},
               "det": "det_launches", "det_serve": "det_serve_launches",
               "train": "train_launches", "det_train": "det_train_launches",
               "probes": "probe_launches"}
@@ -3032,8 +3500,9 @@ def kernels_line(res):
     replaces come from that registry): launches summed over the main paths'
     counted runs (one seg pass of 4 scans, one pass of the same 4 scans of
     each other seg family, one det pass of 2 frames, one
-    device-NMS `predict` of the 2 frames, one train step, one run of the
-    probe tool), and the error, times and bound
+    device-NMS `predict` of the 2 frames, one train step, one training step
+    of each other seg family, one det train step, one run of the probe
+    tool), and the error, times and bound
     of `KERNEL_CASE`. A kernel without a case or without a launch on any
     main path fails the script."""
     from link_tpu_torch.ops import kernels
@@ -3087,8 +3556,10 @@ def main() -> int:
                   phase_det_nms_kernels, phase_det_serve,
                   phase_train_kernels, phase_train_grad, phase_train_golden,
                   phase_train_main, phase_train_profile,
-                  phase_det_train_kernels, phase_det_train_grad,
-                  phase_det_train_golden, phase_det_train_main,
+                  phase_seg_families_train, phase_seg_families_train_grad,
+                  phase_seg_files, phase_det_train_kernels,
+                  phase_det_train_grad, phase_det_train_golden,
+                  phase_det_train_main,
                   phase_det_train_profile, phase_det_train_cli,
                   phase_path_shapes, phase_probes):
         t0 = time.perf_counter()

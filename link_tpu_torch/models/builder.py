@@ -23,7 +23,8 @@ def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
                grid_extent=None) -> torch.nn.Module:
     """The config's seg model. `grid_extent` reaches the models with ELK
     blocks (their dense aux path); SPVCNN runs float32 only, as the JAX
-    model, and its dropout is seeded from `generator`'s seed."""
+    model; its dropout rate is `model.dropout_rate` (0.3, the reference's,
+    when the config has none) and is seeded from `generator`'s seed."""
     m = cfg.model
     caps = tuple(capacities or m.get("capacities", DEFAULT_CAPACITIES))
     num_classes = cfg.data.num_classes
@@ -51,6 +52,7 @@ def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
         return SPVCNN(num_classes=num_classes, cr=cr,
                       pres=cfg.dataset.voxel_size,
                       vres=cfg.dataset.voxel_size,
+                      dropout_rate=m.get("dropout_rate", 0.3),
                       dropout_seed=(None if generator is None
                                     else generator.initial_seed()), **kw)
     raise NotImplementedError(name)

@@ -7,8 +7,9 @@ only (the JAX model has no dtype). The voxel U-Net of MinkUNet
 and a point branch that crosses it at 4 junctions through the trilinear
 `voxel_to_point` and the mean-pooling `point_to_voxel` (`ops/point.py`),
 with point MLPs (Linear + BatchNorm + ReLU, `point_transforms`) on the skip
-path and dropout 0.3 before the two mid-decoder re-voxelizations. The
-input voxels are the points: their coords are the float point positions.
+path and dropout (`dropout_rate`, 0.3 as the reference) before the two
+mid-decoder re-voxelizations. The input voxels are the points: their coords
+are the float point positions.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ from .linkunet import DEFAULT_CAPACITIES
 from .minkunet import SparseUNetBody
 
 SPVCNN_CHANNELS = (32, 32, 64, 128, 256, 256, 128, 96, 96)
-# dropout before the two mid-decoder re-voxelizations, training mode only
-DROPOUT_RATE = 0.3
 
 
 class PointMLP(nn.Sequential):
@@ -58,13 +57,16 @@ class PointMLP(nn.Sequential):
 
 
 class SPVCNN(SparseUNetBody):
-    """`dropout_seed` seeds the dropout's own generator on the feature
-    device, made at the first training-mode forward; without it a
-    training-mode forward with dropout raises. Eval mode draws nothing."""
+    """`dropout_rate` is the dropout before the two mid-decoder
+    re-voxelizations, in training mode only (0 turns it off).
+    `dropout_seed` seeds the dropout's own generator on the feature device,
+    made at the first training-mode forward; without it a training-mode
+    forward with dropout raises. Eval mode draws nothing."""
 
     def __init__(self, num_classes: int, cr: float = 1.0, pres: float = 0.05,
                  vres: float = 0.05, in_channels: int = 4,
                  capacities: Tuple[int, ...] = DEFAULT_CAPACITIES,
+                 dropout_rate: float = 0.3,
                  dropout_seed: Optional[int] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__([int(cr * c) for c in SPVCNN_CHANNELS], in_channels,
@@ -72,6 +74,7 @@ class SPVCNN(SparseUNetBody):
         cs = self.cs
         self.pres, self.vres = pres, vres
         self.capacities = tuple(capacities)
+        self.dropout_rate = float(dropout_rate)
         self.dropout_seed = dropout_seed
         self._dropout_gen: Optional[torch.Generator] = None
         kw = dict(device=device, generator=generator)
@@ -81,7 +84,7 @@ class SPVCNN(SparseUNetBody):
         self.classifier = nn.Sequential(Linear(cs[8], num_classes, **kw))
 
     def _drop(self, f: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training or self.dropout_rate == 0:
             return f
         if self.dropout_seed is None:
             raise ValueError("SPVCNN: training-mode dropout needs "
@@ -91,10 +94,9 @@ class SPVCNN(SparseUNetBody):
             gen = torch.Generator(device=f.device).manual_seed(
                 self.dropout_seed)
             self._dropout_gen = gen
-        keep = torch.rand(f.shape, generator=gen, device=f.device) \
-            >= DROPOUT_RATE
-        return torch.where(keep, f / (1 - DROPOUT_RATE),
-                           torch.zeros_like(f))
+        rate = self.dropout_rate
+        keep = torch.rand(f.shape, generator=gen, device=f.device) >= rate
+        return torch.where(keep, f / (1 - rate), torch.zeros_like(f))
 
     def forward(self, x: SparseTensor) -> torch.Tensor:
         pt0, pt1, pt2 = self.point_transforms

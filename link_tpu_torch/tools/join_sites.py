@@ -66,11 +66,15 @@ def range_stats(prof, name: str, n_items: int) -> dict:
         if inside(e):
             (runtime if e.name().startswith("cu") else ops).add(
                 e.correlation_id())
+    # a host range's annotation on the device's timeline (the name of a
+    # record_function range) is no device operation
+    host_names = {e.name() for e in events
+                  if e.device_type() == DeviceType.CPU}
     dev_ns = 0
     launches = 0
     kinds = {}
     for e in events:
-        if e.device_type() == DeviceType.CPU or e.name() == name:
+        if e.device_type() == DeviceType.CPU or e.name() in host_names:
             continue
         if e.correlation_id() in runtime or e.linked_correlation_id() in ops:
             dev_ns += e.duration_ns()

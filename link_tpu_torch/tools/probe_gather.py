@@ -222,6 +222,22 @@ class Probes:
                                  f"out_rows={out_rows}: differs from the "
                                  "twin")
         err = max_abs_err(got, want)
+        # the library yardstick: one indexing call that gives the same
+        # output (it reads only those rows; the probe stages whole slabs).
+        # Slab mode: each slab's first element; window mode, on offsets
+        # that are multiples of G: the first out_rows rows of a G-row block
+        if out_rows == 0:
+            offs_l = offs.long()
+            library = lambda: x[offs_l, 0]                     # noqa: E731
+        elif block_offsets and n % g == 0:
+            blocks, wb = x.unflatten(0, (n // g, g)), (offs // g).long()
+            library = lambda: blocks[wb, :out_rows]            # noqa: E731
+        else:
+            library = None
+        if library is not None and not torch.equal(
+                library().reshape(want.shape), want):
+            raise AssertionError(f"probe_slab_copy {letter} G={g} S={s}: "
+                                 "the library call's output differs")
         del got, want
         row_bytes = c * 4
         copied = s * g * row_bytes
@@ -239,7 +255,7 @@ class Probes:
                                                              out_rows)),
             "plain_ms": self._time(
                 lambda: kernels.probe_slab_copy_plain(x, offs, g, out_rows)),
-            "library_ms": None,      # no single PyTorch call stages slabs
+            "library_ms": None if library is None else self._time(library),
             # each distinct table row the slabs cover read once (overlapping
             # slabs share rows), the output written, the offsets read
             "bound_ms": (distinct * row_bytes + written + 4 * s)

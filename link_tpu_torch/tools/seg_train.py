@@ -3,7 +3,8 @@
 Counterpart of tools/seg_train.py (reference segmentation/train.py:31-184)
 on one process and one device: config cascade, per-epoch training with the
 per-iteration cosine-warmup LR, val mIoU each epoch, rotating + best
-checkpoints.
+checkpoints. Trains on the SemanticKITTI tree at `dataset.root` (train
+split; val split for the mIoU), or on synthetic scans with `--synthetic`.
 
 Usage:
   python3 -m link_tpu_torch.tools.seg_train \
@@ -23,7 +24,8 @@ import torch
 
 from ..data.collate import collate_scans
 from ..data.loader import PrefetchLoader, epoch_indices, shard_indices
-from ..data.semantic_kitti import SyntheticSemanticKITTI
+from ..data.semantic_kitti import (SemanticKITTI, SyntheticSemanticKITTI,
+                                   dataset_root)
 from ..models import builder
 from ..train import trainer as T
 from ..train.checkpoint import (checkpoint_meta, find_resume, load_checkpoint,
@@ -50,7 +52,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("overrides", nargs="*")
-    return ap.parse_args(argv)
+    # key=value overrides may follow the options (older Pythons' argparse
+    # leaves them unmatched with parse_args)
+    return ap.parse_intermixed_args(argv)
 
 
 def main(argv=None) -> int:
@@ -64,18 +68,26 @@ def main(argv=None) -> int:
                            "the CPU")
     batch = cfg.batch_size
 
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the SemanticKITTI reader is not ported yet: pass --synthetic")
-    print("using synthetic dataset")
-    train_ds = SyntheticSemanticKITTI(
-        length=cfg.dataset.get("synthetic_length", 64),
-        voxel_size=cfg.dataset.voxel_size,
-        num_points=cfg.dataset.num_points, split="train")
-    val_ds = SyntheticSemanticKITTI(
-        length=8, voxel_size=cfg.dataset.voxel_size,
-        num_points=cfg.dataset.num_points, split="train")
-    cfg.data.training_size = len(train_ds)
+    if args.synthetic:
+        print("using synthetic dataset")
+        train_ds = SyntheticSemanticKITTI(
+            length=cfg.dataset.get("synthetic_length", 64),
+            voxel_size=cfg.dataset.voxel_size,
+            num_points=cfg.dataset.num_points, split="train")
+        val_ds = SyntheticSemanticKITTI(
+            length=8, voxel_size=cfg.dataset.voxel_size,
+            num_points=cfg.dataset.num_points, split="train")
+        cfg.data.training_size = len(train_ds)
+    else:
+        train_ds, val_ds = (SemanticKITTI(
+            dataset_root(cfg.dataset.root), split, cfg.dataset.voxel_size,
+            cfg.dataset.num_points) for split in ("train", "val"))
+        if not len(train_ds) or not len(val_ds):
+            raise FileNotFoundError(
+                f"{cfg.dataset.root}: {len(train_ds)} train and "
+                f"{len(val_ds)} val scans (sequences/<seq>/velodyne/*.bin)")
+        print(f"SemanticKITTI at {cfg.dataset.root}: {len(train_ds)} train, "
+              f"{len(val_ds)} val scans")
 
     caps = tuple(c * batch for c in cfg.model.get("capacities"))
     seed = cfg.train.seed
@@ -138,12 +150,13 @@ def main(argv=None) -> int:
         print(f"epoch {epoch}: loss={loss:.4f} "
               f"({steps_per_epoch * batch / dt:.2f} scans/s)", flush=True)
 
-        # validation (voxel-level mIoU)
+        # validation (voxel-level mIoU), one scan a forward: the val split
+        # is not capped at num_points, and `batch` whole scans can exceed
+        # the batch's capacity (the JAX tool collates `batch` at a time)
         miou_metric = MeanIoU(cfg.data.num_classes, cfg.data.ignore_label)
-        for step in range(max(1, len(val_ds) // batch)):
-            sl = [(step * batch + k) % len(val_ds) for k in range(batch)]
+        for i in range(len(val_ds)):
             _, counters = T.seg_eval_step(
-                model, make_batch(val_ds, sl), cfg.data.num_classes,
+                model, make_batch(val_ds, [i]), cfg.data.num_classes,
                 cfg.data.ignore_label)
             miou_metric.update(counters)
         miou = miou_metric.compute()

@@ -23,6 +23,7 @@ from link_tpu_torch.ops import kernels as tk
 from link_tpu_torch.sparse import conv as tconv
 from link_tpu_torch.sparse import coords as tc
 from link_tpu_torch.sparse.tensor import make_sparse_tensor as t_make
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 BF16_TOL = 8e-3

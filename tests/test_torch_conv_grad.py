@@ -29,6 +29,7 @@ from link_tpu_torch.sparse import conv as tconv
 from link_tpu_torch.sparse import coords as tcoords
 from link_tpu_torch.sparse import ops as tops
 from link_tpu_torch.sparse.tensor import make_sparse_tensor
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 BF16_TOL = 8e-3

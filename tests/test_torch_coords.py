@@ -14,6 +14,7 @@ from link_tpu.ops import pallas_kernels as pk
 from link_tpu.sparse import coords as jc
 from link_tpu_torch.ops import kernels as tk
 from link_tpu_torch.sparse import coords as tc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SENT = -(2**20)
 

@@ -21,12 +21,22 @@ the same process and on the same numpy inputs:
   * the streaming tool writes one well-formed record per frame;
   * without a compiler, or with a source that does not compile, the native
     loader raises instead of handing back NumPy results.
+
+The JAX package's library is asked for when the module's first test runs,
+not at collection. Its loader builds `libnms.so` with g++ straight into the
+final path and remembers a failed load; when another test process is
+building it at that moment, the load of the half-written file fails, so the
+fixture clears that memory and retries for up to LOAD_WAIT_S. A library
+that still does not load fails the module's tests with the loader's error;
+none is skipped.
 """
 
 import concurrent.futures as cf
+import ctypes
 import json
 import os
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -44,6 +54,7 @@ from link_tpu_torch.ops import nms as tnms
 from link_tpu_torch.tools import stream_inference
 from link_tpu_torch.train.checkpoint import save_checkpoint
 from link_tpu_torch.train.trainer import TrainState, make_sgd
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ELKV3 = os.path.join(REPO, "configs", "nusc", "voxelnet",
@@ -56,9 +67,26 @@ TINY_CFG = dict(pc_range=[-12, -12], voxel_size=[0.5, 0.5],
 TINY = dict(max_voxels=4000, capacity=4096, grid_shape=(48, 48, 40),
             test_cfg=TINY_CFG)
 
-pytestmark = pytest.mark.skipif(not jnative.available(),
-                                reason="the JAX package's native library "
-                                       "did not build")
+LOAD_WAIT_S = 120.0     # a concurrent first build: ~10 s of g++
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """The JAX package's native library, loaded (and built on first use)
+    when the module's first test runs; see the module docstring."""
+    deadline = time.monotonic() + LOAD_WAIT_S
+    while not jnative.available():
+        if time.monotonic() > deadline:
+            so = os.path.join(os.path.dirname(jnative.__file__), "libnms.so")
+            try:
+                ctypes.CDLL(so)
+                why = "it loads now, after the deadline"
+            except OSError as e:
+                why = str(e)
+            pytest.fail(f"the JAX package's native library {so} did not "
+                        f"load within {LOAD_WAIT_S:.0f} s: {why}")
+        time.sleep(0.5)
+        jnative._TRIED = False      # forget the failed load and try again
 
 
 def _cloud(seed, n=60000):

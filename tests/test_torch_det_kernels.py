@@ -29,6 +29,7 @@ from link_tpu_torch.sparse.tensor import make_sparse_tensor as t_make
 import oracles
 from test_sorted_fastpath import sort_cloud
 from test_sparse_core import pad_coords
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 BF16_TOL = 8e-3

@@ -32,6 +32,7 @@ from link_tpu_torch.ops import kernels as tk
 from link_tpu_torch.utils.convert import from_jax_det_params
 
 from test_torch_import_det import make_det_state_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "det_dense.npz")
 GRID = (48, 48, 40)

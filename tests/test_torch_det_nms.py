@@ -53,6 +53,7 @@ from link_tpu_torch.models import center_head as t_center_head
 from link_tpu_torch.models.center_head import device_nms as t_device_nms
 from link_tpu_torch.ops import kernels
 from link_tpu_torch.ops import nms as tnms
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NEAR = 1e-5          # a pair this close to the threshold may flip
 TINY = dict(max_voxels=4000, capacity=4096, grid_shape=(48, 48, 40),

@@ -30,6 +30,7 @@ from link_tpu_torch.data import nuscenes as tnus
 from link_tpu_torch.inference import SingleFramePredictor as TPredictor
 from link_tpu_torch.models.center_head import decode_boxes as t_decode
 from link_tpu_torch.ops import nms as tnms
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

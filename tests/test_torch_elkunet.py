@@ -32,6 +32,7 @@ from link_tpu_torch.models.linkunet import ELKUNet as TELKUNet
 from link_tpu_torch.nn.modules import SparseBatchNorm as TBatchNorm
 from link_tpu_torch.sparse.tensor import make_sparse_tensor as t_make
 from link_tpu_torch.utils.convert import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 STATE = os.path.join(GOLDEN_DIR, "elkunet_cr0.25_state.npz")

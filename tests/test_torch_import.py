@@ -12,6 +12,7 @@ from link_tpu.utils.torch_import import translate_elkunet
 
 import oracles
 from test_sparse_core import pad_coords, pad_feats
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CAPS = (256, 128, 64, 32, 16)
 

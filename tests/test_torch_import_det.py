@@ -11,6 +11,7 @@ from link_tpu.models.voxelnet import VoxelNet
 from link_tpu.utils.torch_import_det import translate_voxelnet
 from link_tpu.data import det_pipeline as dp
 from test_torch_import import tree_paths
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def make_det_state_dict():

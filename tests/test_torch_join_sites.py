@@ -1,5 +1,6 @@
 """Port vs JAX: the join sites on `sorted_join`'s contract (queries formed
 from base rows, tap offsets and a multiplier), and the det ELK at full
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 scale.
 
 Each join case runs the port's wrapper (on the CPU its plain twin, the

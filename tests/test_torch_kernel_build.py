@@ -11,6 +11,7 @@ import shutil
 import pytest
 
 from link_tpu_torch.ops import kernels
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

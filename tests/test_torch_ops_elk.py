@@ -26,6 +26,7 @@ from link_tpu_torch.ops import elk as telk
 from link_tpu_torch.sparse import ops as tops
 from link_tpu_torch.sparse.dense_grid import box_sum as t_box_sum
 from link_tpu_torch.sparse.tensor import make_sparse_tensor as t_make
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 # the ELK block adds sin/cos of the positional map (libm and XLA differ in

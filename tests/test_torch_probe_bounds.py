@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from link_tpu_torch.tools import probe_gather as pg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("offs,g,n,want", [

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from link_tpu_torch.ops import kernels
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SRC = (Path(kernels.CSRC) / "probes.cu").read_text()
 

@@ -25,6 +25,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from link_tpu_torch.ops import kernels
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _table(rng, shape, dtype):

@@ -27,6 +27,7 @@ from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
 from link_tpu_torch.ops import kernels
 from link_tpu_torch.sparse import coords as C
 from link_tpu_torch.sparse.conv import build_conv_plan
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_REL_TOL = 1e-5     # chip_smoke.py: a float32 kernel against its twin
 

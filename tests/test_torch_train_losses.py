@@ -28,6 +28,7 @@ from link_tpu.train import schedules as JS
 from link_tpu_torch.train import losses as TL
 from link_tpu_torch.train import metrics as TM
 from link_tpu_torch.train import schedules as TS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "losses.npz")
 

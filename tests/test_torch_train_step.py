@@ -54,6 +54,7 @@ from link_tpu_torch.sparse.tensor import make_sparse_tensor as t_make
 from link_tpu_torch.train import schedules as TS
 from link_tpu_torch.train import trainer as TT
 from link_tpu_torch.utils.convert import to_jax_flat
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CAPS = (384, 192, 96, 48, 24)
 CR = 0.125

@@ -31,6 +31,7 @@ from link_tpu_torch.train import schedules
 from link_tpu_torch.train import trainer as TT
 from link_tpu_torch.utils import config as tconfig
 from link_tpu_torch.utils.logging import MetricsLogger, save_runtime_code
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "semantic_kitti", "linkunet",
@@ -99,6 +100,7 @@ def test_checkpoint_round_trip_restores_model_optimizer_and_step(tmp_path):
 def _seg_train(run_dir, *args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"      # as one_torch_thread, for the child
     out = subprocess.run(
         [sys.executable, "-m", "link_tpu_torch.tools.seg_train", CONFIG,
          "--synthetic", "--device", "cpu", "--run-dir", run_dir,

@@ -19,6 +19,7 @@ from link_tpu_torch.ops import kernels
 from link_tpu_torch.sparse import conv as tconv
 from link_tpu_torch.sparse import coords as C
 from link_tpu_torch.sparse.tensor import make_sparse_tensor
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def brute_force(bwd: np.ndarray):

@@ -41,6 +41,7 @@ from link_tpu_torch.sparse import coords as C
 from link_tpu_torch.sparse.conv import add_window_form, build_conv_plan
 
 from test_torch_tf32_split import tf32
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5       # a float32 kernel against its twin (chip_smoke.py)
 TILE = 16            # output rows per warp tile (window_conv.cu, MT)
