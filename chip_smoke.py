@@ -88,7 +88,11 @@ Phases, in order (any failure raises and the script exits non-zero):
                  of a batched call (a frame's 6 tasks in one call; the
                  synthetic sets padded to N = 1,000), equal to its
                  singleton call; the frame's call timed whole and launch
-                 by launch, beside its twin, bound and launch floor;
+                 by launch, beside its twin, bound and launch floor; and
+                 every case again through the build that sends every
+                 clipped pair through the overflow redo
+                 (`rotated_nms_clip_redo`): the same keep, its IoU within
+                 1e-6 of the normal build's;
   9c. det_serve  under PyTorch's own TF32 flags, as a user's process has
                  them: `predict` per frame with host native NMS and with
                  device NMS, split into voxelize, forward + decode (+
@@ -96,6 +100,20 @@ Phases, in order (any failure raises and the script exits non-zero):
                  device-NMS pass (one `rotated_nms` call per frame); both
                  modes' kept boxes from the same decode outputs; and
                  `stream_inference --synthetic 3 --device-nms`;
+  9d. det_flip_golden `double_flip_fuse` + `decode_boxes(double_flip=True)`
+                 on the card against tests/goldens/det_flip.npz (boxes
+                 rtol 1e-4 / atol 1e-5, scores rtol 1e-5, labels exact),
+                 and the same maps card against CPU (< 1e-5);
+  9e. det_tta_main det_test's double-flip path: bfloat16 CenterPoint-ELKv3,
+                 seed-0 weights, each val frame of `write_synthetic_infos`
+                 (10 sweeps, 200k points; written to a temporary
+                 directory) as a batch of its 4 flips at capacity 655,360,
+                 fused at decode, device NMS: launches per frame around
+                 one pass (one `rotated_nms` call), ms per frame, the
+                 profile (device busy, idle share, join sites) and peak
+                 memory; then the batch-4 forward in float32 against the
+                 four batch-1 forwards of the same flips (every head map
+                 < 1e-5) on a frame whose every level fits its capacity;
  10. train_kernels the weight-gradient work list built on the card against
                  its plain twin; `gather_wgrad` against its twin, and the
                  conv's whole
@@ -183,6 +201,18 @@ Phases, in order (any failure raises and the script exits non-zero):
                  --epochs 1` in a fresh process (4 steps into
                  chiprun_out/det_train_run): losses and the peak memory of
                  a fresh process;
+ 14h. det_files  the det tools on the nuScenes-format files, under a user's
+                 TF32 flags: `create_data` gt_database; `det_train` with
+                 --db-info-path, 2 epochs, the second resumed with
+                 --no-aug-from 2 (GT-AUG on, then off); `det_test` on the
+                 checkpoint (host NMS, --device-nms, --double-flip,
+                 --tt-rotation 12.5) and on the seed-0 weights (host,
+                 device, rotated): mAP and NDS finite, host and device NMS
+                 the same boxes on the same decode outputs but for pairs
+                 within 1e-5 of the threshold; `tta_fuse --fuse-only` on
+                 two rotations' JSONs; launches per tool run (no twin: each
+                 kernel of the path launched); log in
+                 chiprun_out/det_files.log;
  15. path_shapes `gather_conv` and `gather_wgrad` against their twins,
                  bit-equal over two runs, at every distinct shape and dtype
                  of one more seg pass, det pass, seg training step and det
@@ -199,7 +229,11 @@ Phases, in order (any failure raises and the script exits non-zero):
                  `gather_wgrad` against the float64 sum (< 1e-5 of the
                  largest entry) at every shape of each step, on its own
                  inputs, each timed beside its bound with its launches per
-                 step;
+                 step; then one more double-flip forward (9e) in bfloat16
+                 and in float32: `gather_conv` and `window_conv` against
+                 their twins at each of its shapes (batch 4, 655,360
+                 level-0 rows), `sorted_join` exactly at each of its 9
+                 calls, each timed beside its bound;
  16. probes      every case of `link_tpu_torch.tools.probe_gather` (the
                  Mosaic probes' shapes and the port's own), each exact
                  against its twin, timed beside its bound and the library
@@ -1070,6 +1104,7 @@ def _window_case(kernels, feats, plan, weight, iters):
     and dtype as the sibling yardstick (`sibling_ms`)."""
     import torch
     args = (feats, plan.base_pos, plan.slot, plan.groups, weight)
+    in_idx = getattr(plan, "in_idx", None)
     got = kernels.window_conv(*args)
     again = kernels.window_conv(*args)
     want = kernels.window_conv_plain(*args)
@@ -1088,8 +1123,10 @@ def _window_case(kernels, feats, plan, weight, iters):
     ops = 2.0 * hits * ci * co
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / TC_OPS[dt] * 1e3
+    window = getattr(plan, "window", None)
     shape = (f"{'N=M=' + str(m) if n == m else f'N={n} M={m}'} "
-             f"G={plan.window} K={k} Ci={ci} Co={co} {dt}")
+             f"{f'Gg={gg}' if window is None else f'G={window}'} K={k} "
+             f"Ci={ci} Co={co} {dt}")
     case = {
         "shape": shape,
         "rel_err": err, "tol": tol,
@@ -1099,18 +1136,19 @@ def _window_case(kernels, feats, plan, weight, iters):
                       f"window_conv {shape}"),
         "plain_ms": cuda_ms(lambda: kernels.window_conv_plain(*args), iters,
                             f"window_conv_plain {shape}"),
-        "sibling_ms": cuda_ms(
-            lambda: kernels.gather_conv(feats, plan.in_idx, weight), iters,
+        "sibling_ms": None if in_idx is None else cuda_ms(
+            lambda: kernels.gather_conv(feats, in_idx, weight), iters,
             f"gather_conv on the window plan {shape}"),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "hits": hits,
     }
+    sibling = ("" if in_idx is None else
+               f", gather_conv on the plan {case['sibling_ms']:.4f} ms")
     log(f"window_conv {shape}: rel err {err:.3g} (tol {tol}), same twice "
         f"{case['same_twice']}, kernel {case['ms']:.4f} ms, twin "
-        f"{case['plain_ms']:.4f} ms, gather_conv on the plan "
-        f"{case['sibling_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
-        f"({case['bound_by']}), hits {hits}")
+        f"{case['plain_ms']:.4f} ms{sibling}, bound {case['bound_ms']:.4f} "
+        f"ms ({case['bound_by']}), hits {hits}")
     if not err < tol:
         raise AssertionError(f"window_conv {shape}: rel err {err} >= {tol}")
     if not case["same_twice"]:
@@ -1439,12 +1477,18 @@ def _nms_case(kernels, nms, native, boxes, scores, valid, thresh, max_keep,
     pair; the kernel's keep must equal the twin's walk over the kernel's
     own overlaps, and each pair the kernel and the twin decide differently
     must lie within NEAR_THRESH of the threshold; then the keep masks are
-    equal unless such a pair exists. Returns (the case, the keep)."""
+    equal unless such a pair exists. The kernel's build that sends every
+    clipped pair through its overflow redo (`rotated_nms_clip_redo`) must
+    keep the same rows, its IoU within NATIVE_IOU_TOL of this build's.
+    Returns (the case, the keep)."""
     import torch
     n = scores.shape[0]
     keep = kernels.rotated_nms(boxes, scores, valid, thresh, max_keep)
     twin = nms.rotate_nms_device(boxes, scores, valid, thresh, max_keep)
+    redo = kernels.rotated_nms_clip_redo(boxes, scores, valid, thresh,
+                                         max_keep)
     iou_k = kernels.rotated_nms_iou(boxes)
+    iou_redo = kernels.rotated_nms_iou(boxes, clip_redo=True)
     iou_t = nms.rotated_iou_bev(boxes).double()
     b7 = torch.zeros((n, 7))
     b7[:, [0, 1, 3, 4, 6]] = boxes.cpu()
@@ -1471,7 +1515,15 @@ def _nms_case(kernels, nms, native, boxes, scores, valid, thresh, max_keep,
         "max_iou_diff": float((iou_k - iou_t)[both].abs().max())
         if bool(both.any()) else 0.0,
         "max_native_iou_diff": native_diff,
+        "redo_keep_equal": bool(torch.equal(redo, keep)),
+        "redo_max_iou_diff": float((iou_redo - iou_k)[both].abs().max())
+        if bool(both.any()) else 0.0,
     }
+    if not (case["redo_keep_equal"]
+            and case["redo_max_iou_diff"] <= NATIVE_IOU_TOL):
+        raise AssertionError(f"rotated_nms {role} {shape}: the clip-redo "
+                             "build keeps other rows (or its IoU is "
+                             f"{case['redo_max_iou_diff']:.3g} away)")
     if native_diff > NATIVE_IOU_TOL:
         raise AssertionError(f"rotated_nms {role} {shape}: the kernel's IoU "
                              f"is {native_diff:.3g} from native.bev_iou")
@@ -1641,7 +1693,10 @@ def phase_det_nms_kernels(res, ctx):
         f"{max(c['max_iou_diff'] for c in cases):.3g} from the twin, "
         f"{max(c['max_native_iou_diff'] for c in cases):.3g} from "
         f"native.bev_iou; real candidates kept "
-        f"{[c['kept'] for c in real]}")
+        f"{[c['kept'] for c in real]}; the clip-redo build kept the same "
+        f"rows in all {len(cases)} cases, its IoU at most "
+        f"{max(c['redo_max_iou_diff'] for c in cases):.3g} from this "
+        "build's")
 
 
 @contextlib.contextmanager
@@ -1728,13 +1783,7 @@ def _det_serve(res, ctx, rounds):
         got_h = host.postprocess(outs)
         got_d = dev.postprocess(device_nms(outs, dev.cfg))
         same = all(np.array_equal(got_h[k], got_d[k]) for k in got_h)
-        near = 0
-        for bx, sc, _, vm in nms_candidates(outs, host.cfg):
-            iou = kernels.rotated_nms_iou(bx[0][:, [0, 1, 3, 4, 8]])
-            v = vm[0]
-            both = (v[:, None] & v[None, :]
-                    & ~torch.eye(len(v), dtype=torch.bool, device=v.device))
-            near += int((both & ((iou - th).abs() < NEAR_THRESH)).sum()) // 2
+        near = _near_pairs(kernels, nms_candidates(outs, host.cfg), th)
         compare.append({"frame": f, "kept_host": len(got_h["scores"]),
                         "kept_device": len(got_d["scores"]), "equal": same,
                         "near_pairs": near})
@@ -1762,6 +1811,357 @@ def _det_serve(res, ctx, rounds):
                               or not np.isfinite(r["scores"]).all()
                               for r in recs)):
         raise AssertionError(f"stream_inference records: {recs[:1]}")
+
+
+# --------------------------------------------------------------------------
+# det on nuScenes-format files: double-flip and rotation TTA
+
+DET_FLIP_GOLDEN = os.path.join(HERE, "tests", "goldens", "det_flip.npz")
+# the golden's decode (tests/test_golden_det_dense.py:50-90): six tasks,
+# a near-zero NMS radius in the reference, so its rows are the decode's
+FLIP_TEST_CFG = dict(post_center_limit_range=[-8.0, -8.0, -10.0,
+                                              8.0, 8.0, 10.0],
+                     score_threshold=0.4, pc_range=[-6.0, -6.0],
+                     voxel_size=[0.075, 0.075], out_size_factor=8)
+FLIP_NUM_CLASSES = (1, 2, 2, 1, 2, 2)
+FLIP_BOX_RTOL, FLIP_BOX_ATOL = 1e-4, 1e-5   # as the JAX golden test
+FLIP_SCORE_RTOL = 1e-5
+# nuScenes-format files of write_synthetic_infos: keyframes per split (the
+# first of each split has no previous sweep), 10 sweeps, 200k points a frame
+NUS_TREE = {"train": 2, "val": 3}
+NUS_SWEEPS = 10
+DET_FILES_LOG = os.path.join(HERE, "chiprun_out", "det_files.log")
+
+
+def _flip_decode(z, device):
+    """double_flip_fuse + decode_boxes(double_flip=True) of the golden's
+    maps on `device`: each task's rows above the threshold, by descending
+    score (the reference's circle NMS emits them so), concatenated."""
+    import torch
+    from link_tpu_torch.models.center_head import decode_boxes
+    preds = [{k: torch.from_numpy(np.ascontiguousarray(np.transpose(
+        z[f"flip_t{t}_{k}"], (0, 2, 3, 1)))).to(device)
+        for k in ("hm", "reg", "height", "dim", "rot", "vel")}
+        for t in range(len(FLIP_NUM_CLASSES))]
+    outs = decode_boxes(preds, FLIP_TEST_CFG, FLIP_NUM_CLASSES,
+                        double_flip=True)
+    rows = ([], [], [])
+    for bx, sc, lb, mk in outs:
+        m = mk[0].cpu().numpy()
+        b, s, lab = (bx[0].cpu().numpy()[m], sc[0].cpu().numpy()[m],
+                     lb[0].cpu().numpy()[m])
+        order = np.argsort(-s, kind="stable")
+        for dst, src in zip(rows, (b, s, lab)):
+            dst.append(src[order])
+    return tuple(np.concatenate(r) for r in rows)
+
+
+def phase_det_flip_golden(res, ctx):
+    """The double-flip fuse and decode on the card against the reference's
+    (tests/goldens/det_flip.npz: boxes rtol 1e-4 / atol 1e-5, scores rtol
+    1e-5, labels exact), and the same maps on the card against the CPU."""
+    import torch
+    z = np.load(DET_FLIP_GOLDEN)
+    got = _flip_decode(z, "cuda")
+    cpu = _flip_decode(z, "cpu")
+    want = (z["flip_boxes"], z["flip_scores"], z["flip_labels"])
+    out = {"rows": len(got[1]), "golden_rows": len(want[1])}
+    for name, ref in (("golden", want), ("cpu", cpu)):
+        if got[0].shape != ref[0].shape or not np.array_equal(got[2],
+                                                              ref[2]):
+            raise AssertionError(f"det_flip_golden: rows {got[0].shape} and "
+                                 f"labels against the {name}'s "
+                                 f"{ref[0].shape} differ")
+        out[f"{name}_box_abs_err"] = float(np.abs(got[0] - ref[0]).max())
+        out[f"{name}_score_rel_err"] = float(
+            (np.abs(got[1] - ref[1]) / np.abs(ref[1])).max())
+    out["cpu_box_rel_err"] = rel_err(torch.from_numpy(got[0]),
+                                     torch.from_numpy(cpu[0]))
+    res["det_flip_golden"] = out
+    log(f"det_flip_golden: {out['rows']} rows, labels equal; boxes "
+        f"{out['golden_box_abs_err']:.3g} abs from the golden (rtol "
+        f"{FLIP_BOX_RTOL}, atol {FLIP_BOX_ATOL}), scores "
+        f"{out['golden_score_rel_err']:.3g} rel (rtol {FLIP_SCORE_RTOL}); "
+        f"card vs CPU boxes {out['cpu_box_rel_err']:.3g} rel, scores "
+        f"{out['cpu_score_rel_err']:.3g} rel")
+    if not (np.allclose(got[0], want[0], rtol=FLIP_BOX_RTOL,
+                        atol=FLIP_BOX_ATOL)
+            and np.allclose(got[1], want[1], rtol=FLIP_SCORE_RTOL, atol=0)):
+        raise AssertionError(f"det_flip_golden: off the golden: {out}")
+    if not (out["cpu_box_rel_err"] < F32_REL_TOL
+            and out["cpu_score_rel_err"] < F32_REL_TOL):
+        raise AssertionError(f"det_flip_golden: card vs CPU: {out}")
+
+
+def _nus_tree(ctx):
+    """nuScenes-format files of synthetic frames (NUS_TREE) and their info
+    pkls in a temporary directory, removed at exit; written once."""
+    if "nus_infos" not in ctx:
+        import atexit
+        import shutil
+        import tempfile
+        from link_tpu_torch.data.nuscenes import write_synthetic_infos
+        root = tempfile.mkdtemp(prefix="nus_")
+        atexit.register(shutil.rmtree, root, True)
+        t0 = time.perf_counter()
+        ctx["nus_infos"] = write_synthetic_infos(root, NUS_TREE, NUS_SWEEPS,
+                                                 seed=0)
+        ctx["nus_root"] = root
+        log(f"wrote nuScenes-format files of {NUS_TREE} keyframes, "
+            f"{NUS_SWEEPS} sweeps, in {time.perf_counter() - t0:.1f} s")
+    return ctx["nus_infos"]
+
+
+def _det_conv_count(model) -> int:
+    """Sparse convs with a kernel map per det forward: each SubM conv, each
+    K > 1 down conv, and 4 (3 downs and the extra conv)."""
+    from link_tpu_torch.models.scn import SubMConv3d
+    from link_tpu_torch.nn.modules import SparseConv3d
+    return sum(1 for mod in model.modules()
+               if isinstance(mod, SubMConv3d)
+               or (isinstance(mod, SparseConv3d)
+                   and math.prod(mod.kernel_size) > 1)) + 4
+
+
+DET_PLANS = 8     # 4 SubM levels (a window join each), 3 downs + the extra
+# the double-flip batch: 4 frames' level-0 lattice exceeds the dense aux
+# grid's bound (ops/elk.DENSE_AUX_MAX_BYTES), so level 0's ELK block takes
+# the sparse aux join, as in det training at batch 2
+DET_BATCH4_JOINS = DET_PLANS + 1
+
+
+def phase_det_tta_main(res, ctx, rounds=3):
+    """det_test's double-flip path at full width: CenterPoint-ELKv3 bf16,
+    seed-0 weights, each frame's [orig, y-flip, x-flip, xy-flip] as one
+    batch of 4 at capacity 4 x 163,840, fused at decode, rotated NMS on the
+    card (--device-nms), the kept rows copied to the host; on the val
+    frames of write_synthetic_infos that have their 9 sweeps (the first
+    keyframe, whose sweeps repeat it, is left out). Launches per frame
+    around one pass, ms per frame (best round), the profile (device busy
+    ms, idle share, join sites) and peak memory. Then the batch-4 forward
+    in float32 against the four batch-1 forwards of the flipped inputs."""
+    import torch
+    from link_tpu_torch.inference import masked_rows
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
+    from link_tpu_torch.tools import det_test
+
+    infos = _nus_tree(ctx)
+    args = det_test.parse_args(["--info-path", infos["val"],
+                                "--root-path", ctx["nus_root"],
+                                "--double-flip", "--dtype", "bfloat16",
+                                "--device-nms"])
+    ds = det_test.make_dataset(args)
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in range(1, len(ds))]
+    load_s = (time.perf_counter() - t0) / len(samples)
+    run = det_test.DetTest(args, "cuda")
+    batches = [run.batch(s) for s in samples]
+    n = len(batches)
+    caps = run.model.backbone.capacities
+    levels = {"val frame": _det_level_rows(samples[0]["coords_zyx"]),
+              "hold frame": _det_level_rows(_hold_frame()[0]["coords_zyx"])}
+    res["det_level_rows"] = {"capacities_per_frame": [c // 4 for c in caps],
+                             **levels}
+    log(f"det rows a frame needs at levels 0-3: {levels}, capacities per "
+        f"frame {[c // 4 for c in caps]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    masked_rows(run.forward(batches[0]))                      # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    outs = [run.forward(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    res["det_tta_launches"] = launches
+
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            masked_rows(run.forward(b))
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+    kept = []
+    for out in outs:
+        for boxes, scores, labels, keep in out:
+            if boxes.shape[0] != 1 or not torch.isfinite(boxes[keep]).all():
+                raise AssertionError("det tta: batch or non-finite boxes "
+                                     f"{tuple(boxes.shape)}")
+        pb, ps, pl = run.detections(masked_rows(out))
+        kept.append(len(ps))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = _profile(lambda: [masked_rows(run.forward(b)) for b in batches],
+                    n, min(times), "frame", ranges=(JOIN_RANGE,))
+    convs = _det_conv_count(run.model)
+    per_frame = {k: v / n for k, v in launches.items() if v}
+    res["det_tta"] = {
+        "frames": n, "nnz": [int(b["nnz"]) for b in batches],
+        "load_s_per_frame": load_s, "ms_per_frame": times,
+        "peak_mem_gb": peak, "kept": kept, "launches_per_frame": per_frame,
+        "rotated_nms_launches_per_frame": launches["rotated_nms"] / n}
+    res["det_tta_profile"] = prof
+    log(f"det tta (double flip, bf16, batch 4 at {run.cap} rows, device "
+        f"NMS), {n} frames ({res['det_tta']['nnz']} voxels of the 4 "
+        f"flips): ms per frame per round {[round(t, 2) for t in times]}, "
+        f"launches per frame {per_frame}, rotated_nms launches per frame "
+        f"{launches['rotated_nms'] / n}, peak memory {peak:.2f} GB, kept "
+        f"{kept}; frame read and voxelized 4 x in {load_s:.2f} s")
+    _check_join_sites(prof, "frame", launches["sorted_join"] / n)
+    if (launches["sorted_join"] != n * DET_BATCH4_JOINS
+            or launches["window_conv"] + launches["gather_conv"]
+            != n * convs
+            or launches["rotated_nms"] != n * kernels.ROTATED_NMS_LAUNCHES
+            or min(launches[k] for k in ("sorted_join", "window_conv",
+                                         "gather_conv")) == 0):
+        raise AssertionError(f"det tta launches {launches}: expected "
+                             f"{DET_BATCH4_JOINS} joins, {convs} convs and "
+                             "one rotated_nms call per frame")
+    ctx.update(tta_run=run, tta_batches=batches)
+    _tta_hold(res, ctx)
+
+
+HOLD_PATCH_POINTS = 150000
+# the det backbone's strided convs (models/scn.py): kernel, stride, padding
+DET_DOWNS = ((3, 2, (1, 1, 1)), (3, 2, (1, 1, 1)), (3, 2, (1, 1, 0)))
+
+
+def _det_level_rows(coords_zyx, grid=(1440, 1440, 41)) -> list:
+    """Rows a frame needs at det levels 0-3: its voxels, then the output
+    set of each strided conv (every cell that some input reaches through
+    the kernel), on the host. Against DET_CAPACITIES, what a level drops."""
+    import itertools
+    c = np.asarray(coords_zyx)[:, ::-1].astype(np.int64)
+    shape = np.asarray(grid)
+    rows = [len(c)]
+    for k, st, pad in DET_DOWNS:
+        pad = np.asarray(pad)
+        out_shape = (shape + 2 * pad - k) // st + 1
+        outs = []
+        for kk in itertools.product(range(k), repeat=3):
+            num = c + pad - np.asarray(kk)
+            o = num[(num % st == 0).all(1)] // st
+            outs.append(o[((o >= 0) & (o < out_shape)).all(1)])
+        c, shape = np.unique(np.concatenate(outs), axis=0), out_shape
+        rows.append(len(c))
+    return rows
+
+
+def _hold_frame(seed: int = 0):
+    """The 4 flipped voxelizations of a frame whose every level fits det
+    capacities: 150,000 points on a 20 m x 20 m ground patch. The
+    synthetic frames scatter their voxels, so their levels 1-3 overflow
+    (`_det_level_rows`, logged by det_tta_main), and an overflow drops rows
+    by batch position: batch 4 and batch 1 would drop different rows."""
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.data.nuscenes import make_double_flip_variants
+    rng = np.random.default_rng(seed)
+    n = HOLD_PATCH_POINTS
+    pts = np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n),
+                    rng.normal(-1.0, 0.03, n), rng.uniform(0, 255, n),
+                    np.zeros(n)], 1).astype(np.float32)
+    args = ((0.075, 0.075, 0.2), (-54, -54, -5.0, 54, 54, 3.0), 10, 160000)
+    voxels, coords_zyx, nppv = dp.points_to_voxel(pts, *args)
+    return [{"voxels": voxels, "coords_zyx": coords_zyx,
+             "num_points": nppv}] + make_double_flip_variants(pts, *args)
+
+
+def _tta_hold(res, ctx):
+    """The batch-4 forward in float32 (TF32 off) at det_test's double-flip
+    capacity against four batch-1 forwards of the same flipped inputs
+    (`_hold_frame`) at det_test's capacity, same weights: every head map
+    of each group within DET_GOLDEN_REL_TOL."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.tools import det_test
+    cap = det_test.CAPACITY
+    group = _hold_frame()
+
+    def model(b):
+        c = cap * b
+        return VoxelNet(batch_size=b, grid_shape=det_test.GRID,
+                        capacities=(c, c // 2, c // 4, c // 8),
+                        device="cuda",
+                        generator=torch.Generator().manual_seed(0)).eval()
+
+    m4, m1 = model(4), model(1)
+    m1.load_state_dict(m4.state_dict())
+    b4 = dp.collate_det(group, 4 * cap)
+    errs = {}
+    with torch.inference_mode():
+        p4 = m4(*dp.det_inputs(b4, "cuda"))
+        for g, single in enumerate(group):
+            p1 = m1(*dp.det_inputs(dp.collate_det([single], cap), "cuda"))
+            for t, (a, b) in enumerate(zip(p4, p1)):
+                for key in a:
+                    errs[f"group {g} task {t} {key}"] = rel_err(
+                        a[key][g:g + 1], b[key])
+    worst = max(errs, key=errs.get)
+    res["det_tta_hold"] = {"maps": len(errs), "worst": worst,
+                           "worst_rel_err": errs[worst]}
+    log(f"det tta hold: batch 4 vs 4 x batch 1 in float32, {len(errs)} "
+        f"maps, worst {errs[worst]:.3g} ({worst}; tol {DET_GOLDEN_REL_TOL})")
+    if not errs[worst] < DET_GOLDEN_REL_TOL:
+        raise AssertionError(f"det tta hold: {worst} rel err {errs[worst]}")
+    del m1
+    ctx["tta_f32"] = (m4, b4)
+
+
+def _tta_shapes(res, ctx, kernels, iters=5):
+    """Every kernel of the double-flip forward (batch 4 at 655,360 rows)
+    at each of its shapes, on the inputs one more forward gives it, in
+    bfloat16 (det_tta_main's model) and float32 (the hold's):
+    `gather_conv` and `window_conv` against their twins (f32 < 1e-5, bf16
+    < 8e-3, bit-equal over two runs), `sorted_join` exactly at each of its
+    calls; each timed beside its bound."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.sparse.coords import CoordTable
+    run, batches = ctx.pop("tta_run"), ctx.pop("tta_batches")
+    m4, b4 = ctx.pop("tta_f32")
+    recs = {}
+    with torch.inference_mode():
+        with ShapeRecorder() as recs["bfloat16"]:
+            run.model(*dp.det_inputs(batches[0], "cuda"))
+        with ShapeRecorder() as recs["float32"]:
+            m4(*dp.det_inputs(b4, "cuda"))
+    torch.cuda.synchronize()
+    conv, window, joins = [], [], []
+    for dt, rec in recs.items():
+        role = f"det batch 4 {dt}"
+        for feats, idx, weight in rec.conv.values():
+            conv.append(_conv_case(kernels, feats, idx, weight, iters,
+                                   role=role))
+        for feats, plan, weight in rec.window.values():
+            window.append(dict(_window_case(kernels, feats, plan, weight,
+                                            iters), role=role))
+    # the float32 pass joins the same coordinates: its calls are the same
+    for i, (hi, lo, perm, base, offs, mult, mode) in enumerate(
+            recs["bfloat16"].joins):
+        joins.append(_join_case(kernels, CoordTable(hi, lo, perm), base,
+                                offs, mode, iters, mult=mult,
+                                role=f"det batch 4 join {i}"))
+    del recs, run, m4
+    torch.cuda.empty_cache()
+    res["tta_conv_cases"] = conv
+    res["tta_window_cases"] = window
+    res["tta_join_cases"] = joins
+    log(f"tta shapes (batch 4): gather_conv at {len(conv)}, window_conv at "
+        f"{len(window)} shapes (bf16 and f32), each within its tolerance "
+        f"and bit-equal over two runs; sorted_join at {len(joins)} calls, "
+        "each equal to its twin; kernel / bound ms: gather_conv "
+        f"{sum(c['ms'] for c in conv):.3f} / "
+        f"{sum(c['bound_ms'] for c in conv):.3f}, window_conv "
+        f"{sum(c['ms'] for c in window):.3f} / "
+        f"{sum(c['bound_ms'] for c in window):.3f}, sorted_join "
+        f"{sum(c['ms'] for c in joins):.3f} / "
+        f"{sum(c['bound_ms'] for c in joins):.3f}")
+    if not conv or not window or len(joins) != DET_BATCH4_JOINS:
+        raise AssertionError(f"tta shapes: {len(conv)} gather_conv, "
+                             f"{len(window)} window_conv shapes, "
+                             f"{len(joins)} joins")
 
 
 # --------------------------------------------------------------------------
@@ -3164,24 +3564,232 @@ def phase_det_train_cli(res, ctx):
         raise AssertionError(f"det_train: {rec}")
 
 
+def _launch_counts():
+    from link_tpu_torch.ops import kernels
+    return {fn.__name__: fn.launches for fn in kernels.KERNELS}
+
+
+def _near_pairs(kernels, cands, th):
+    """Pairs of valid candidates whose kernel IoU lies within NEAR_THRESH of
+    the threshold (`nms_candidates` of one frame)."""
+    import torch
+    near = 0
+    for bx, _, _, vm in cands:
+        iou = kernels.rotated_nms_iou(bx[0][:, [0, 1, 3, 4, 8]])
+        v = vm[0]
+        both = (v[:, None] & v[None, :]
+                & ~torch.eye(len(v), dtype=torch.bool, device=v.device))
+        near += int((both & ((iou - th).abs() < NEAR_THRESH)).sum()) // 2
+    return near
+
+
+def phase_det_files(res, ctx):
+    """The det tools on the nuScenes-format files, on the card, at full
+    width, under PyTorch's own TF32 flags (`user_tf32`), as a user's
+    process runs them, in turn: `create_data gt_database` on the train
+    infos; `det_train` without --synthetic, with --db-info-path, 2 epochs
+    (the first with GT-AUG, stopped; the second resumed with --no-aug-from
+    2, so without); `det_test` on its checkpoint over the val infos with
+    host NMS, with --device-nms, with --double-flip and with --tt-rotation
+    12.5 (mAP and NDS finite), and with the seed-0 weights (whose frames
+    keep boxes) with host NMS, --device-nms and --tt-rotation 12.5;
+    `tta_fuse --fuse-only` on the seed-0 rotation-0 and 12.5 JSONs; host
+    and device NMS keep the same boxes from the same decode outputs but
+    for pairs within NEAR_THRESH of the threshold (the det_serve rule), for
+    both weights. Launch counts per tool run; the tools' output in
+    chiprun_out/det_files.log."""
+    with user_tf32():
+        _det_files(res, ctx)
+
+
+def _det_files(res, ctx):
+    import contextlib
+    import json as _json
+    import shutil
+    import tempfile
+    from link_tpu_torch.inference import masked_rows
+    from link_tpu_torch.models.center_head import device_nms, nms_candidates
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import create_data, det_test, det_train
+    from link_tpu_torch.tools import tta_fuse
+
+    infos = _nus_tree(ctx)
+    root = ctx["nus_root"]
+    work = tempfile.mkdtemp(prefix="det_files_")
+    out, launches = {}, {}
+    kernels.reset_launch_counts()
+    try:
+        run_dir = os.path.join(work, "run")
+        db_path = os.path.join(root, "dbinfos_train.pkl")
+        train = ["--info-path", infos["train"], "--root-path", root,
+                 "--db-info-path", db_path, "--epochs", "2", "--run-dir",
+                 run_dir]
+        ckpt = os.path.join(run_dir, "latest.pt")
+        json_of = {}
+
+        def test(name, *extra):
+            json_of[name] = os.path.join(work, name + ".json")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            weights = [] if name.startswith("seed0") else ["--checkpoint",
+                                                           ckpt]
+            r = det_test.evaluate(det_test.parse_args(
+                ["--info-path", infos["val"], "--root-path", root, *weights,
+                 "--out", json_of[name], *extra]))
+            r["s"] = time.perf_counter() - t0
+            launches[f"det_test {name}"] = _launch_counts()
+            return r
+
+        os.makedirs(os.path.dirname(DET_FILES_LOG), exist_ok=True)
+        with open(DET_FILES_LOG, "w") as logf, \
+                contextlib.redirect_stdout(logf):
+            t0 = time.perf_counter()
+            db = create_data.build_gt_database(root, infos["train"],
+                                               NUS_SWEEPS)
+            out["gt_database"] = {"s": time.perf_counter() - t0,
+                                  "classes": {k: len(v)
+                                              for k, v in db.items()}}
+            t0 = time.perf_counter()
+            det_train.main(train + ["--stop-after-epoch", "1"])
+            det_train.main(train + ["--resume", "auto", "--no-aug-from",
+                                    "2"])
+            out["train_s"] = time.perf_counter() - t0
+            launches["det_train"] = _launch_counts()
+            runs = {"host": test("host"),
+                    "device": test("device", "--device-nms"),
+                    "flip": test("flip", "--double-flip"),
+                    "rot": test("rot", "--tt-rotation", "12.5"),
+                    "seed0_host": test("seed0_host"),
+                    "seed0_device": test("seed0_device", "--device-nms"),
+                    "seed0_rot": test("seed0_rot", "--tt-rotation", "12.5")}
+            t0 = time.perf_counter()
+            tta_fuse.main(["--out-dir", os.path.join(work, "tta"),
+                           "--fuse-only", json_of["seed0_host"],
+                           json_of["seed0_rot"]])
+            out["tta_fuse_s"] = time.perf_counter() - t0
+            with open(os.path.join(work, "tta", "fused.json")) as f:
+                fused = _json.load(f)
+        text = open(DET_FILES_LOG).read()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            epochs = {r["epoch"]: r for r in map(_json.loads, f)
+                      if "epoch" in r}
+        out["epochs"] = epochs
+        if (sorted(epochs) != [1, 2] or "resumed" not in text
+                or [epochs[e]["gt_aug"] for e in (1, 2)] != [True, False]
+                or not all(np.isfinite(r["loss/train"])
+                           for r in epochs.values())):
+            raise AssertionError(f"det_files: det_train epochs {epochs}")
+
+        n_val = len(det_test.make_dataset(det_test.parse_args(
+            ["--info-path", infos["val"]])))
+        for name, r in runs.items():
+            m = r["metrics"]
+            out[name] = {"s": r["s"], "ms_per_frame": r["ms_per_frame"],
+                         "mAP": m["mean_ap"], "NDS": m["nds"],
+                         "kept": [len(s["pred_scores"])
+                                  for s in r["samples"]]}
+            if (len(r["samples"]) != n_val
+                    or not np.isfinite([m["mean_ap"], m["nds"]]).all()
+                    or not all(np.isfinite(s["pred_boxes"]).all()
+                               for s in r["samples"])):
+                raise AssertionError(f"det_files: det_test {name}: {out}")
+
+        # host and device NMS on the same decode outputs (as det_serve: two
+        # runs' forwards may differ in float rounding, which reorders the
+        # many tied scores of the seed-0 weights): the same boxes, or a
+        # pair near the threshold; for the checkpoint, whose 10 steps leave
+        # few scores above the threshold, and the seed-0 weights, whose
+        # frames keep 83 a task
+        compare = []
+        th = det_test.TEST_CFG["nms_iou_threshold"]
+        for name, weights in (("checkpoint", ["--checkpoint", ckpt]),
+                              ("seed0", [])):
+            pargs = det_test.parse_args(["--info-path", infos["val"],
+                                         *weights])
+            run = det_test.DetTest(pargs, "cuda")
+            ds = det_test.make_dataset(pargs)
+            for f in range(len(ds)):
+                outs = run.forward(run.batch(ds[f]))
+                host = run.detections(masked_rows(outs))
+                dev = masked_rows(device_nms(outs, run.cfg))
+                dev = tuple(np.concatenate([r[i] for r in dev])
+                            for i in range(3))
+                same = all(np.array_equal(a, b) for a, b in zip(host, dev))
+                near = 0 if same else _near_pairs(
+                    kernels, nms_candidates(outs, run.cfg), th)
+                compare.append({"weights": name, "frame": f,
+                                "kept": len(host[1]), "equal": same,
+                                "near_pairs": near})
+                if not same and near == 0:
+                    raise AssertionError(
+                        f"det_files {name} frame {f}: host and device NMS "
+                        "keep different boxes, and no pair lies near the "
+                        "threshold")
+        for pre in ("", "seed0_"):
+            out[pre + "cli_runs_equal"] = all(
+                np.array_equal(a[k], b[k])
+                for a, b in zip(runs[pre + "host"]["samples"],
+                                runs[pre + "device"]["samples"])
+                for k in ("pred_boxes", "pred_scores", "pred_labels"))
+        out["host_vs_device"] = compare
+
+        want_nms = n_val * kernels.ROTATED_NMS_LAUNCHES
+        for name, cnt in launches.items():
+            need = ("sorted_join", "gather_conv", "window_conv") + (
+                ("gather_wgrad",) if name == "det_train" else ())
+            if min(cnt[k] for k in need) == 0 or cnt["rotated_nms"] != (
+                    want_nms if name.endswith("device") else 0):
+                raise AssertionError(f"det_files: {name} launches {cnt}")
+        if (len(fused) != n_val or not all(
+                np.all(np.diff(r["pred_scores"]) <= 0) for r in fused)
+                or not any(len(r["pred_scores"]) for r in fused)):
+            raise AssertionError(f"det_files: tta_fuse wrote {len(fused)} "
+                                 f"records of {n_val}")
+        out["fused_kept"] = [len(r["pred_scores"]) for r in fused]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["det_files"] = out
+    res["det_files_launches"] = {
+        k: sum(cnt[k] for cnt in launches.values())
+        for k in next(iter(launches.values()))}
+    res["det_files_launches_by_tool"] = launches
+    ms_step = {e: 2e3 / r["samples_per_sec"] for e, r in epochs.items()}
+    log(f"det_files: gt_database {out['gt_database']}; det_train epochs "
+        f"{[(e, round(r['loss/train'], 4), r['gt_aug']) for e, r in epochs.items()]}"
+        f" (loss, GT-AUG; epoch 2 resumed), ms per step (data on the host "
+        f"included) {[round(v, 1) for v in ms_step.values()]}, "
+        f"{out['train_s']:.1f} s; det_test "
+        + "; ".join(f"{k}: mAP {out[k]['mAP']:.4f} NDS {out[k]['NDS']:.4f} "
+                    f"ms per frame {[round(v, 1) for v in out[k]['ms_per_frame']]}"
+                    f" kept {out[k]['kept']}"
+                    for k in runs)
+        + f"; host vs device NMS {compare}; tta_fuse kept "
+        f"{out['fused_kept']}; launches {launches}")
+
+
 # --------------------------------------------------------------------------
 # the conv kernels at every shape of the main paths
 
 
 class ShapeRecorder:
     """Stands in for the kernels module as `link_tpu_torch.sparse.conv`
-    sees it, during one run of a main path: every call reaches the kernel
-    as before, and the arguments of the first `gather_conv` and
-    `gather_wgrad` call of each distinct shape and dtype are kept, with the
-    number of calls of each (`conv_calls`, `wgrad_calls`)."""
+    and `link_tpu_torch.sparse.coords` see it, during one run of a main
+    path: every call reaches the kernel as before, and the arguments of the
+    first `gather_conv`, `gather_wgrad` and `window_conv` call of each
+    distinct shape and dtype are kept, with the number of calls of each
+    (`conv_calls`, `wgrad_calls`), and those of every `sorted_join` call
+    (`joins`)."""
 
     def __init__(self):
-        self.conv, self.wgrad = {}, {}
+        self.conv, self.wgrad, self.window = {}, {}, {}
         self.conv_calls, self.wgrad_calls = {}, {}
+        self.joins = []
 
     def __enter__(self):
+        from types import SimpleNamespace
         from link_tpu_torch.sparse import conv as sconv
-        self._module, self._real = sconv, sconv.kernels
+        from link_tpu_torch.sparse import coords as scoords
+        self._modules, self._real = (sconv, scoords), sconv.kernels
         real, rec = self._real, self
 
         class View:
@@ -3207,11 +3815,32 @@ class ShapeRecorder:
                 rec.wgrad_calls[key] = rec.wgrad_calls.get(key, 0) + 1
                 return real.gather_wgrad(feats, g, bwd_idx, work)
 
-        sconv.kernels = View()
+            @staticmethod
+            def window_conv(feats, base_pos, slot, groups, weight):
+                key = (tuple(feats.shape), tuple(slot.shape),
+                       tuple(weight.shape), str(feats.dtype), groups)
+                rec.window.setdefault(key, (feats.detach(), SimpleNamespace(
+                    base_pos=base_pos, slot=slot, groups=groups),
+                    weight.detach()))
+                return real.window_conv(feats, base_pos, slot, groups,
+                                        weight)
+
+            @staticmethod
+            def sorted_join(t_hi, t_lo, perm, base, offsets=None, mult=None,
+                            mode="exact"):
+                rec.joins.append((t_hi, t_lo, perm, base, offsets, mult,
+                                  mode))
+                return real.sorted_join(t_hi, t_lo, perm, base, offsets,
+                                        mult, mode)
+
+        view = View()
+        for mod in self._modules:
+            mod.kernels = view
         return self
 
     def __exit__(self, *exc):
-        self._module.kernels = self._real
+        for mod in self._modules:
+            mod.kernels = self._real
         return False
 
 
@@ -3373,6 +4002,7 @@ def phase_path_shapes(res, ctx, iters=10):
     if sites != want:
         raise AssertionError(f"family join sites {sites}, expected {want}")
     _family_train_shapes(res, ctx, kernels, recorders, iters)
+    _tta_shapes(res, ctx, kernels)
 
 
 def _family_train_shapes(res, ctx, kernels, recorders, iters):
@@ -3491,6 +4121,8 @@ MAIN_PATHS = {"seg": "launches",
               **{f"train_{name}": f"family_train_launches_{name}"
                  for name in FAMILIES},
               "det": "det_launches", "det_serve": "det_serve_launches",
+              "det_tta": "det_tta_launches",
+              "det_files": "det_files_launches",
               "train": "train_launches", "det_train": "det_train_launches",
               "probes": "probe_launches"}
 
@@ -3500,9 +4132,10 @@ def kernels_line(res):
     replaces come from that registry): launches summed over the main paths'
     counted runs (one seg pass of 4 scans, one pass of the same 4 scans of
     each other seg family, one det pass of 2 frames, one
-    device-NMS `predict` of the 2 frames, one train step, one training step
-    of each other seg family, one det train step, one run of the probe
-    tool), and the error, times and bound
+    device-NMS `predict` of the 2 frames, one double-flip pass of 2 val
+    frames, the det tools' runs on the nuScenes-format files, one train
+    step, one training step of each other seg family, one det train step,
+    one run of the probe tool), and the error, times and bound
     of `KERNEL_CASE`. A kernel without a case or without a launch on any
     main path fails the script."""
     from link_tpu_torch.ops import kernels
@@ -3554,6 +4187,7 @@ def main() -> int:
                   phase_seg_families_eval, phase_det_kernels, phase_det_golden,
                   phase_det_elk_golden, phase_det_main, phase_det_profile,
                   phase_det_nms_kernels, phase_det_serve,
+                  phase_det_flip_golden, phase_det_tta_main,
                   phase_train_kernels, phase_train_grad, phase_train_golden,
                   phase_train_main, phase_train_profile,
                   phase_seg_families_train, phase_seg_families_train_grad,
@@ -3561,6 +4195,7 @@ def main() -> int:
                   phase_det_train_grad, phase_det_train_golden,
                   phase_det_train_main,
                   phase_det_train_profile, phase_det_train_cli,
+                  phase_det_files,
                   phase_path_shapes, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)

@@ -46,8 +46,11 @@
 //                    line) flags the pair, and its lane redoes it alone in
 //                    a larger scratch of the warp (clip_area_slow), so the
 //                    result is the reference clip's for every input. No
-//                    input of the tests or of chip_smoke.py has reached
-//                    that redo, so it has never run.
+//                    input of the tests or of chip_smoke.py reaches that
+//                    redo by itself; a build with -DROTATED_NMS_CLIP_REDO
+//                    (a library of its own, `kernels.rotated_nms_clip_redo`)
+//                    sends every clipped pair through it, and chip_smoke.py
+//                    holds that build's keep masks against this one's.
 //   nms_walk_kernel  one warp per set: the greedy walk in rank order, 64
 //                    ranks (one mask word) at a time. The warp copies the
 //                    next chunk's rows of the mask into shared memory
@@ -425,8 +428,13 @@ __device__ __forceinline__ void pair_tile(
     if (has)
       inter = clip_area(s_q[0][r], s_q[1][c], poly[warp] + lane, over);
     // a flagged pair is redone by its lane alone, in the whole warp's
-    // buffer (every lane has its area by now)
+    // buffer (every lane has its area by now); the redo build redoes every
+    // pair
+#ifdef ROTATED_NMS_CLIP_REDO
+    unsigned hard = __ballot_sync(FULL, has);
+#else
     unsigned hard = __ballot_sync(FULL, has && over);
+#endif
     while (hard) {
       if (lane == __ffs(hard) - 1)
         inter = clip_area_slow(s_q[0][r], s_q[1][c], poly[warp]);

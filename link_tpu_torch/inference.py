@@ -76,6 +76,35 @@ def masked_rows(task_outs) -> List[Tuple[np.ndarray, ...]]:
     return out
 
 
+def host_nms(rows, cfg: Dict, device_nms: bool = False,
+             impl: str = "native") -> Dict[str, np.ndarray]:
+    """`masked_rows` after the host's rotated NMS per task under `cfg`'s
+    threshold and caps (none when `device_nms`: the rows are already the
+    device NMS's keep), concatenated over the tasks: {box3d_lidar, scores,
+    label_preds}."""
+    boxes_l, scores_l, labels_l = [], [], []
+    for bx, sc, lb in rows:
+        if len(bx) == 0:
+            continue
+        if not device_nms:
+            keep = rotate_nms_pcdet(
+                bx[:, [0, 1, 2, 3, 4, 5, 8]], sc,
+                thresh=cfg["nms_iou_threshold"],
+                pre_maxsize=cfg["nms_pre_max_size"],
+                post_max_size=cfg["nms_post_max_size"], impl=impl)
+            bx, sc, lb = bx[keep], sc[keep], lb[keep]
+        boxes_l.append(bx)
+        scores_l.append(sc)
+        labels_l.append(lb)
+    if not boxes_l:
+        return {"box3d_lidar": np.zeros((0, 9), np.float32),
+                "scores": np.zeros(0, np.float32),
+                "label_preds": np.zeros(0, np.int64)}
+    return {"box3d_lidar": np.concatenate(boxes_l),
+            "scores": np.concatenate(scores_l),
+            "label_preds": np.concatenate(labels_l)}
+
+
 class SingleFramePredictor:
     """Voxelize -> VoxelNet forward -> decode -> rotated NMS for one point
     cloud at a time. `predict` is the whole loop; `voxelize` (host),
@@ -173,30 +202,8 @@ class SingleFramePredictor:
         return self.apply_floors(self.host_nms(masked_rows(task_outs)))
 
     def host_nms(self, rows) -> Dict[str, np.ndarray]:
-        """`masked_rows` after the host's rotated NMS per task (none in
-        device NMS mode), concatenated over the tasks."""
-        boxes_l, scores_l, labels_l = [], [], []
-        for bx, sc, lb in rows:
-            if len(bx) == 0:
-                continue
-            if not self.device_nms:
-                keep = rotate_nms_pcdet(
-                    bx[:, [0, 1, 2, 3, 4, 5, 8]], sc,
-                    thresh=self.cfg["nms_iou_threshold"],
-                    pre_maxsize=self.cfg["nms_pre_max_size"],
-                    post_max_size=self.cfg["nms_post_max_size"],
-                    impl=self.host_impl)
-                bx, sc, lb = bx[keep], sc[keep], lb[keep]
-            boxes_l.append(bx)
-            scores_l.append(sc)
-            labels_l.append(lb)
-        if not boxes_l:
-            return {"box3d_lidar": np.zeros((0, 9), np.float32),
-                    "scores": np.zeros(0, np.float32),
-                    "label_preds": np.zeros(0, np.int64)}
-        return {"box3d_lidar": np.concatenate(boxes_l),
-                "scores": np.concatenate(scores_l),
-                "label_preds": np.concatenate(labels_l)}
+        """`host_nms` under the predictor's test config and mode."""
+        return host_nms(rows, self.cfg, self.device_nms, self.host_impl)
 
     def apply_floors(self, det: Dict[str, np.ndarray]
                      ) -> Dict[str, np.ndarray]:

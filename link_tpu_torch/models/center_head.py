@@ -5,9 +5,9 @@ PyTorch counterpart of `link_tpu/models/center_head.py` (reference
 detection/det3d/models/bbox_heads/center_head.py:67-446 and
 losses/centernet_loss.py:6-62) with `dcn_head=False` (every published LinK
 config): the head, the training loss (`center_head_loss`: FastFocal on the
-heatmaps + weight * code-weighted masked L1 on the boxes), the decode, and
-the rotated NMS on the device (`device_nms`, through the `rotated_nms`
-kernel). Six task
+heatmaps + weight * code-weighted masked L1 on the boxes), the decode
+(with the fuse of double-flip TTA, `double_flip_fuse`), and the rotated
+NMS on the device (`device_nms`, through the `rotated_nms` kernel). Six task
 groups over the nuScenes classes; per task a SepHead with branches reg(2) /
 height(1) / dim(3) / rot(2) / vel(2) / hm(C), each Conv3x3 + BN + ReLU ->
 Conv3x3 (hm's final bias -2.19). Module layout and `state_dict` keys follow the
@@ -164,13 +164,58 @@ def center_head_loss(preds: List[Dict[str, torch.Tensor]], example: Dict,
     return total, logs
 
 
+def double_flip_fuse(pd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fuse the maps of a batch ordered in groups of 4, [original, y-flip,
+    x-flip, xy-flip] (link_tpu/models/center_head.py:170-220; reference
+    center_head.py:320-416). NHWC maps: group 1 is flipped back along H
+    (y), group 2 along W (x), group 3 along both; hm is averaged after the
+    sigmoid and dim after the exp, reg, rot and vel are sign-corrected,
+    then each of the four is averaged. Returns maps of batch B / 4."""
+    b4, h, w, _ = pd["hm"].shape
+    b = b4 // 4
+
+    def regroup(v):
+        v = v.reshape(b, 4, h, w, v.shape[-1])
+        return torch.stack([v[:, 0], torch.flip(v[:, 1], dims=(1,)),
+                            torch.flip(v[:, 2], dims=(2,)),
+                            torch.flip(v[:, 3], dims=(1, 2))], dim=1)
+
+    out = {"hm": regroup(torch.sigmoid(pd["hm"])).mean(1),
+           "height": regroup(pd["height"]).mean(1),
+           "dim": regroup(torch.exp(pd["dim"])).mean(1)}
+    reg = regroup(pd["reg"])
+    reg[:, 1, ..., 1] = 1 - reg[:, 1, ..., 1]
+    reg[:, 2, ..., 0] = 1 - reg[:, 2, ..., 0]
+    reg[:, 3, ..., 0] = 1 - reg[:, 3, ..., 0]
+    reg[:, 3, ..., 1] = 1 - reg[:, 3, ..., 1]
+    out["reg"] = reg.mean(1)
+
+    rot = regroup(pd["rot"])
+    rots, rotc = rot[..., 0:1].clone(), rot[..., 1:2].clone()
+    rotc[:, 1] *= -1
+    rots[:, 2] *= -1
+    rots[:, 3] *= -1
+    rotc[:, 3] *= -1
+    out["rot"] = torch.cat([rots.mean(1), rotc.mean(1)], -1)
+
+    if "vel" in pd:
+        vel = regroup(pd["vel"])
+        vel[:, 1, ..., 1] *= -1
+        vel[:, 2, ..., 0] *= -1
+        vel[:, 3] *= -1
+        out["vel"] = vel.mean(1)
+    return out
+
+
 def decode_boxes(preds: List[Dict[str, torch.Tensor]], test_cfg: Dict,
-                 num_classes: Sequence[int]):
+                 num_classes: Sequence[int], double_flip: bool = False):
     """center_head.py:296-446 decode without NMS (link_tpu/models/
-    center_head.py:223-273, double_flip off): per task (boxes (B, H*W, 9)
+    center_head.py:223-273): per task (boxes (B, H*W, 9)
     [x y z w l h vx vy rot], scores (B, H*W), labels (B, H*W) int32 with
     global class offsets, mask (B, H*W) = score above the threshold and
-    centre inside the post-centre range). Decodes in float32."""
+    centre inside the post-centre range). With `double_flip` the batch is
+    groups of 4 flipped inputs, fused first (`double_flip_fuse`), and B is
+    the number of groups. Decodes in float32."""
     out = []
     pc_range = test_cfg["pc_range"]
     voxel_size = test_cfg["voxel_size"]
@@ -179,12 +224,16 @@ def decode_boxes(preds: List[Dict[str, torch.Tensor]], test_cfg: Dict,
     class_offset = 0
     for t, pd in enumerate(preds):
         pd = {k: v.float() for k, v in pd.items()}
-        hm = torch.sigmoid(pd["hm"])
+        if double_flip:
+            pd = double_flip_fuse(pd)
+            hm, dim_map = pd["hm"], pd["dim"]
+        else:
+            hm, dim_map = torch.sigmoid(pd["hm"]), torch.exp(pd["dim"])
         b, h, w, c = hm.shape
         dev = hm.device
         post = torch.tensor(test_cfg["post_center_limit_range"],
                             dtype=torch.float32, device=dev)
-        dim = torch.exp(pd["dim"]).reshape(b, h * w, 3)
+        dim = dim_map.reshape(b, h * w, 3)
         rot = torch.atan2(pd["rot"][..., 0:1], pd["rot"][..., 1:2]).reshape(
             b, h * w, 1)
         reg = pd["reg"].reshape(b, h * w, 2)

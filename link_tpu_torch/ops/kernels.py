@@ -80,7 +80,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 KERNELS = []        # the wrappers, in the order they are defined
 
@@ -106,41 +106,56 @@ def _nvcc() -> str:
     return path
 
 
-def _so_path(src: str, csrc: Path = CSRC) -> Path:
+# Builds of a source with extra -D defines, each a library of its own
+# (named by the defines too), which an instrument loads through
+# `_lib(source, defines)`: rotated_nms.cu with every clipped pair sent
+# through its overflow redo.
+CLIP_REDO = ("rotated_nms.cu", ("ROTATED_NMS_CLIP_REDO",))
+VARIANTS = (CLIP_REDO,)
+
+
+def _so_path(src: str, csrc: Path = CSRC, defines: Tuple[str, ...] = ()
+             ) -> Path:
     """The library of one source, named by a hash of the source, every
-    header of `csrc` (a quoted #include finds them beside the source) and
-    the flags, so that editing any of them builds anew."""
+    header of `csrc` (a quoted #include finds them beside the source), the
+    flags and the defines, so that editing any of them builds anew."""
     h = hashlib.sha1((csrc / src).read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if defines:
+        h.update((" " + " ".join(f"-D{d}" for d in defines)).encode())
     return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels() -> Dict[str, str]:
-    """Compile every kernel source that has no up-to-date library, one nvcc
-    process per source, all started together. Returns {source: compiler
-    output} for the sources built by this call (ptxas register and shared
-    memory report)."""
+    """Compile every kernel source, and every build of `VARIANTS`, that has
+    no up-to-date library, one nvcc process per library, all started
+    together. Returns {source or "source -Ddefine": compiler output} for
+    the libraries built by this call (ptxas register and shared memory
+    report)."""
     with _build_lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for src in SOURCES:
-            so = _so_path(src)
+        for src, defines in [(s, ()) for s in SOURCES] + list(VARIANTS):
+            so = _so_path(src, defines=defines)
             if so.exists():
                 continue
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True), tmp, so)
+            flags = [f"-D{d}" for d in defines]
+            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+                   str(CSRC / src)]
+            procs[" ".join([src, *flags])] = (
+                subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True),
+                tmp, so)
         logs = {}
         failed = []
-        for src, (proc, tmp, so) in procs.items():
+        for name, (proc, tmp, so) in procs.items():
             out, _ = proc.communicate()
-            logs[src] = out
+            logs[name] = out
             if proc.returncode != 0:
-                failed.append(f"{src}:\n{out}")
+                failed.append(f"{name}:\n{out}")
                 continue
             os.replace(tmp, so)
         if failed:
@@ -148,19 +163,20 @@ def build_kernels() -> Dict[str, str]:
         return logs
 
 
-def _lib(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, with the argument types of every
-    registered entry point in it."""
-    lib = _libs.get(source)
+def _lib(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of one source (or of its build with `defines`,
+    one of `VARIANTS`), with the argument types of every registered entry
+    point in it."""
+    lib = _libs.get((source, defines))
     if lib is None:
         build_kernels()
-        lib = ctypes.CDLL(str(_so_path(source)))
+        lib = ctypes.CDLL(str(_so_path(source, defines=defines)))
         for wrapper in KERNELS:
             if wrapper.source == source:
                 fn = getattr(lib, wrapper.__name__)
                 fn.argtypes = wrapper.argtypes
                 fn.restype = ctypes.c_int
-        _libs[source] = lib
+        _libs[(source, defines)] = lib
     return lib
 
 
@@ -913,6 +929,15 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
     if _on_cpu(boxes, scores, valid):
         from .nms import rotate_nms_device
         return rotate_nms_device(boxes, scores, valid, thresh, max_keep)
+    keep = _rotated_nms_call(lambda: _entry(rotated_nms), boxes, scores,
+                             valid, thresh, max_keep)
+    rotated_nms.launches += ROTATED_NMS_LAUNCHES
+    return keep
+
+
+def _rotated_nms_call(entry, boxes, scores, valid, thresh, max_keep):
+    """Check `rotated_nms`'s inputs and launch the C entry that `entry()`
+    returns (loaded after the checks)."""
     _check_cuda("rotated_nms", boxes, scores, valid)
     if scores.dim() not in (1, 2):
         raise ValueError("rotated_nms: scores (N,) or (S, N)")
@@ -931,11 +956,10 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
         return keep
     nbytes = _nms_scratch_bytes(sets, n)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=boxes.device)
-    _raise_on("rotated_nms", _entry(rotated_nms)(
+    _raise_on("rotated_nms", entry()(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), sets, n,
         float(thresh), max(0, min(int(max_keep), n)), scratch.data_ptr(),
         nbytes, keep.data_ptr(), _stream(boxes)))
-    rotated_nms.launches += ROTATED_NMS_LAUNCHES
     return keep
 
 
@@ -945,13 +969,26 @@ _kernel(rotated_nms, "rotated_nms.cu",
         [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _LL, _P, _P])
 
 
-def rotated_nms_iou(boxes: torch.Tensor) -> torch.Tensor:
+def rotated_nms_clip_redo(boxes: torch.Tensor, scores: torch.Tensor,
+                          valid: torch.Tensor, thresh: float,
+                          max_keep: int) -> torch.Tensor:
+    """`rotated_nms` from its build with -DROTATED_NMS_CLIP_REDO
+    (`CLIP_REDO`), which sends every clipped pair through the overflow
+    redo (`clip_area_slow`) instead of the 8-vertex clip: an instrument
+    for holding that redo against the normal build. CUDA tensors only; no
+    path calls it, and it counts no launch."""
+    return _rotated_nms_call(lambda: _lib(*CLIP_REDO).rotated_nms, boxes,
+                             scores, valid, thresh, max_keep)
+
+
+def rotated_nms_iou(boxes: torch.Tensor,
+                    clip_redo: bool = False) -> torch.Tensor:
     """The BEV IoU matrix (N, N) float64 of (N, 5) float32 boxes on the
     card, from the tile code whose IoU `rotated_nms` thresholds (row i the
     clip's subject, column j the clip quad), in input order and over every
     pair. An instrument for holding the kernel's IoU against
     `nms.rotated_iou_bev` and `native.bev_iou`; no path calls it, and it
-    counts no launch."""
+    counts no launch. `clip_redo`: from the `CLIP_REDO` build."""
     _check_cuda("rotated_nms_iou", boxes)
     n = boxes.shape[0]
     if boxes.dtype != torch.float32 or boxes.shape != (n, 5) \
@@ -959,7 +996,8 @@ def rotated_nms_iou(boxes: torch.Tensor) -> torch.Tensor:
         raise ValueError("rotated_nms_iou: boxes (N, 5) float32, "
                          f"0 < N <= {NMS_MAX_N}")
     out = torch.empty((n, n), dtype=torch.float64, device=boxes.device)
-    fn = _lib("rotated_nms.cu").rotated_nms_iou
+    fn = _lib(*(CLIP_REDO if clip_redo else ("rotated_nms.cu",))
+              ).rotated_nms_iou
     fn.argtypes = [_P, _I, _P, _P]
     fn.restype = ctypes.c_int
     _raise_on("rotated_nms_iou",

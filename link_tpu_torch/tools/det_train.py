@@ -7,15 +7,27 @@ a global-norm clip of 35 and the CenterHead loss, the recipe read from the
 reference-style config; one checkpoint per epoch, and `--resume`
 continues the same one-cycle schedule.
 
+The frames come from the train infos of a nuScenes tree
+(`NuScenesDataset(mode="train")`: 10 sweeps, CBGS, global augmentation)
+on the grid of `--grid`, with GT-AUG from the database of
+`--db-info-path` (tools/create_data gt_database) until epoch
+`--no-aug-from` (the reference's GT-AUG "fading": from that epoch on, and
+also in a run resumed past it, no samples are pasted); or, with
+`--synthetic`, synthetic frames on the 1440 x 1440 x 40 grid (`GRID`).
+
 Usage:
-  python3 -m link_tpu_torch.tools.det_train --synthetic \
+  python3 -m link_tpu_torch.tools.det_train [--synthetic] \
+      [--info-path P] [--root-path D] [--db-info-path DB] \
+      [--no-aug-from 16] [--grid 1440 1440 40] \
       [--config configs/nusc/voxelnet/...elkv3.py] [--epochs N] \
       [--samples-per-device 2] [--voxel-capacity 163840] [--run-dir D] \
       [--resume [auto|path]] [--stop-after-epoch N] [--device cpu]
 
 As in the JAX tool, --config sets the recipe, its total_epochs included
-(over --epochs), and the synthetic frames are the default ones on the
-1440 x 1440 x 40 grid (`GRID`).
+(over --epochs), and its `data.train_anno` (over --info-path). Unlike the
+JAX tool, a missing info pkl or GT database raises FileNotFoundError
+naming the path (JAX falls back to synthetic frames, or trains without
+GT-AUG).
 """
 
 from __future__ import annotations
@@ -28,7 +40,8 @@ import torch
 
 from ..data import det_pipeline as dp
 from ..data.loader import PrefetchLoader, epoch_indices, shard_indices
-from ..data.nuscenes import SyntheticNuScenes
+from ..data.gt_aug import DataBaseSampler
+from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
 from ..models.voxelnet import VoxelNet
 from ..train import det_trainer as DT
 from ..train import schedules
@@ -50,17 +63,22 @@ def parse_args(argv=None):
     ap.add_argument("--config", default=None,
                     help="reference-style py config (configs/nusc/...); "
                          "sets the recipe's hyperparameters")
+    ap.add_argument("--info-path", default="data/nuScenes/infos_train_"
+                                           "10sweeps_withvelo_filter_True.pkl")
+    ap.add_argument("--root-path", default="data/nuScenes")
     ap.add_argument("--db-info-path", default=None,
-                    help="GT-AUG database (not ported yet)")
+                    help="GT-AUG database (tools/create_data gt_database)")
     ap.add_argument("--synthetic", action="store_true",
                     help="train on synthetic nuScenes frames")
+    ap.add_argument("--no-aug-from", type=int, default=16,
+                    help="epoch from which GT-AUG is off (fading)")
     ap.add_argument("--epochs", type=int, default=20,
                     help="without --config; a config's total_epochs wins")
     ap.add_argument("--samples-per-device", type=int, default=2)
     ap.add_argument("--run-dir", default=None)
     ap.add_argument("--voxel-capacity", type=int, default=163840)
-    ap.add_argument("--grid", type=int, nargs=3, default=None,
-                    help="grid of real data (not ported yet)")
+    ap.add_argument("--grid", type=int, nargs=3, default=list(GRID),
+                    help="the voxel grid of the real data (x y z)")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -79,18 +97,6 @@ def parse_args(argv=None):
 
 def _unported(args) -> None:
     """Raise on the parts that wait for other slices of the port."""
-    if not args.synthetic:
-        raise NotImplementedError(
-            "real nuScenes data: NuScenesDataset is not ported yet (ROADMAP "
-            "§1 item 7); pass --synthetic")
-    if args.db_info_path:
-        raise NotImplementedError(
-            "--db-info-path: GT-AUG (data/gt_aug.py) is not ported yet "
-            "(ROADMAP §1 item 7)")
-    if args.grid is not None:
-        raise NotImplementedError(
-            "--grid: it sets the grid of real nuScenes data, which is not "
-            "ported yet (ROADMAP §1 item 7)")
     if args.dense_from_level is not None:
         raise NotImplementedError(
             "--dense-from-level: the hybrid dense backbone is not ported yet "
@@ -104,7 +110,8 @@ def _unported(args) -> None:
 
 def recipe(args) -> dict:
     """The one-cycle recipe: `RECIPE`, or the config's (as the JAX tool
-    reads it: its total_epochs replaces --epochs)."""
+    reads it: its total_epochs replaces --epochs, and its data.train_anno
+    --info-path)."""
     rc = dict(RECIPE, epochs=args.epochs)
     if args.config:
         cfg = load_config(args.config)
@@ -117,7 +124,28 @@ def recipe(args) -> dict:
                   pct_start=cfg.lr_config.pct_start, wd=cfg.optimizer.wd,
                   clip=cfg.optimizer_config.grad_clip.max_norm,
                   epochs=cfg.total_epochs)
+        args.info_path = cfg.data.train_anno
     return rc
+
+
+def train_dataset(args):
+    """The training frames and their grid: the train infos with GT-AUG, or
+    synthetic frames."""
+    if args.synthetic:
+        print("using synthetic nuScenes")
+        return (SyntheticNuScenes(length=max(8, args.samples_per_device),
+                                  mode="train",
+                                  max_voxels=args.voxel_capacity), GRID)
+    for flag, path in (("--info-path", args.info_path),
+                       ("--db-info-path", args.db_info_path)):
+        if path is not None and not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{flag}: no file at {path!r}; make it with python3 -m "
+                "link_tpu_torch.tools.create_data, or pass --synthetic")
+    db_sampler = (DataBaseSampler(args.db_info_path, args.root_path)
+                  if args.db_info_path else None)
+    return (NuScenesDataset(args.info_path, args.root_path, mode="train",
+                            db_sampler=db_sampler), tuple(args.grid))
 
 
 def main(argv=None) -> int:
@@ -132,10 +160,7 @@ def main(argv=None) -> int:
     epochs = rc["epochs"]
     spd = args.samples_per_device
 
-    print("using synthetic nuScenes")
-    train_ds = SyntheticNuScenes(length=max(8, spd), mode="train",
-                                 max_voxels=args.voxel_capacity)
-    grid = GRID
+    train_ds, grid = train_dataset(args)
 
     cap = args.voxel_capacity * spd
     model = VoxelNet(num_input_features=5, batch_size=spd, grid_shape=grid,
@@ -178,6 +203,10 @@ def main(argv=None) -> int:
         return dp.collate_det([train_ds[int(i)] for i in idxs], cap)
 
     for epoch in range(start_epoch, epochs + 1):
+        # >= (not ==), so that a run resumed past the fading epoch stays
+        # faded
+        if epoch >= args.no_aug_from and hasattr(train_ds, "db_sampler"):
+            train_ds.db_sampler = None
         idx = epoch_indices(len(train_ds), epoch)
         shard = shard_indices(idx[:steps_per_epoch * spd], 1)[0]
         t0 = time.time()
@@ -192,7 +221,8 @@ def main(argv=None) -> int:
         dt = time.time() - t0
         rate = steps_per_epoch * spd / dt
         rec = {"epoch": epoch, "step": opt.count, "loss/train": loss,
-               "samples_per_sec": rate}
+               "samples_per_sec": rate,
+               "gt_aug": getattr(train_ds, "db_sampler", None) is not None}
         if device.type == "cuda":
             # since the process started: the step's peak in a fresh process
             rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30

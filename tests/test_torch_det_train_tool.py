@@ -68,9 +68,9 @@ def test_det_train_runs_and_resumes_the_one_cycle_position(tmp_path,
 
 
 @pytest.mark.parametrize("flags,item", [
-    ([], "item 7"),
-    (["--synthetic", "--db-info-path", "db.pkl"], "item 7"),
-    (["--synthetic", "--grid", "48", "48", "40"], "item 7"),
+    (["--synthetic", "--coordinator", "localhost:1234"], "item 8"),
+    (["--synthetic", "--process-id", "0"], "item 8"),
+    (["--dense-from-level", "0"], "item 6"),
     (["--synthetic", "--dense-from-level", "2"], "item 6"),
     (["--synthetic", "--num-processes", "2"], "item 8")])
 def test_det_train_raises_on_the_unported_parts(flags, item):

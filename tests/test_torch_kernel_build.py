@@ -57,3 +57,28 @@ def test_a_new_header_renames_the_libraries(csrc_copy):
     before = paths(csrc_copy)
     (csrc_copy / "extra.cuh").write_text("#pragma once\n")
     assert all(paths(csrc_copy)[s] != before[s] for s in kernels.SOURCES)
+
+
+def test_the_clip_redo_build_names_its_own_library(csrc_copy):
+    """rotated_nms.cu built with -DROTATED_NMS_CLIP_REDO (every clipped
+    pair through the overflow redo) is a library of its own, renamed by an
+    edit of the source like the normal build."""
+    src, defines = kernels.CLIP_REDO
+    assert kernels.CLIP_REDO in kernels.VARIANTS
+    redo = kernels._so_path(src, csrc_copy, defines)
+    assert redo != kernels._so_path(src, csrc_copy)
+    assert redo.name.startswith("rotated_nms-")
+    text = (csrc_copy / src).read_text()
+    assert all(f"#ifdef {d}" in text for d in defines)
+    (csrc_copy / src).write_text(text + "\n// edited\n")
+    assert kernels._so_path(src, csrc_copy, defines) != redo
+
+
+def test_the_clip_redo_wrappers_take_cuda_tensors_only():
+    import torch
+    b = torch.zeros((4, 5))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.rotated_nms_clip_redo(b, torch.zeros(4),
+                                      torch.ones(4, dtype=torch.bool), 0.2, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.rotated_nms_iou(b, clip_redo=True)
