@@ -213,6 +213,47 @@ Phases, in order (any failure raises and the script exits non-zero):
                  two rotations' JSONs; launches per tool run (no twin: each
                  kernel of the path launched); log in
                  chiprun_out/det_files.log;
+ 14i. det_dense the hybrid dense backbone (`dense_from_level`), f32 with
+                 TF32 off: the backbone at levels 2 and 1 against the
+                 sparse one on the hold frame (a 150,000-point ground
+                 patch whose every level fits its capacity): BEV rel err
+                 < 2e-4; the same on the det frames, whose levels 1-3
+                 overflow (logged, not gated); bf16 forward + decode of
+                 sparse, dense-2 and dense-1 on the det frames, under a
+                 user's TF32 flags (the dense levels convolve in f32, as
+                 in JAX): launches
+                 per frame against the sparse levels' plans and convs (2L
+                 joins, 1 + 8L convs), frames/s, device busy, idle share,
+                 peak memory; `det_test --dense-from-level 2|1
+                 --device-nms` on det_files' val tree; `det_train
+                 --synthetic --epochs 1 --dense-from-level 2` in a fresh
+                 process (chiprun_out/det_train_dense_run.*);
+ 14j. det_dcn    one DCNSepHead at the 180 x 180 x 64 head input, card
+                 against CPU in f32 (maps < 1e-5; `deform_conv2d` on the
+                 same offsets: output and the gradients of x, offsets and
+                 weight < 1e-4); under a user's TF32 flags bf16
+                 CenterPoint-ELKv3 with `dcn_head=True`, forward + decode
+                 + device NMS on the det frames (launches, frames/s,
+                 profile, peak memory, the DCN head's device ms beside
+                 SepHead's); `det_test --dcn-head --device-nms` on
+                 det_files' val tree; `det_train --synthetic --config
+                 --stop-after-epoch 1` of a config with
+                 bbox_head.dcn_head=True in a fresh process (4 steps,
+                 chiprun_out/det_train_dcn_run.*) and `det_test --config`
+                 of it on its checkpoint with --device-nms;
+ 14k. det_two_stage the RoI head and BEV pooling on the card against
+                 tests/goldens/det_roi.npz; `det_train_two_stage
+                 --synthetic --gt-proposals` for 10 steps in a fresh process
+                 on det_files' checkpoint (chiprun_out/
+                 det_train_two_stage.log); `det_test --two-stage` with the new
+                 roi_head.pt on det_files' val tree, first stage
+                 det_files' checkpoint and then seed 0's (whose frames keep
+                 boxes), host and device NMS: ms per frame, the second
+                 stage's ms, mAP and NDS finite, launches per run; every
+                 det_test run of 14i-14k fails unless it launched
+                 rotated_nms 3 times a frame with --device-nms and never
+                 without, and every tool run unless it went through the
+                 join and conv kernels (with gather_wgrad in det_train);
  15. path_shapes `gather_conv` and `gather_wgrad` against their twins,
                  bit-equal over two runs, at every distinct shape and dtype
                  of one more seg pass, det pass, seg training step and det
@@ -233,7 +274,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                  and in float32: `gather_conv` and `window_conv` against
                  their twins at each of its shapes (batch 4, 655,360
                  level-0 rows), `sorted_join` exactly at each of its 9
-                 calls, each timed beside its bound;
+                 calls, each timed beside its bound; then the same at every
+                 shape of the two-stage tool's first stage (f32, 131,072
+                 rows) and of the bf16 dense-2 backbone's sparse levels;
  16. probes      every case of `link_tpu_torch.tools.probe_gather` (the
                  Mosaic probes' shapes and the port's own), each exact
                  against its twin, timed beside its bound and the library
@@ -3527,41 +3570,82 @@ def phase_det_train_profile(res, ctx):
             f"{opt:.2f} ms")
 
 
-def phase_det_train_cli(res, ctx):
-    """`python3 -m link_tpu_torch.tools.det_train --synthetic --epochs 1`
-    in a fresh process: the default recipe on 8 synthetic frames, 4 steps;
-    its log and metrics go to chiprun_out/det_train_run.* (the run dir,
-    with a 130 MB checkpoint, under runs/ and removed after); the step's
-    peak memory in a fresh process comes from its log."""
-    import shutil
-    run_dir = os.path.join(HERE, "runs", "chip_smoke_det_train")
-    shutil.rmtree(run_dir, ignore_errors=True)
-    cmd = [sys.executable, "-m", "link_tpu_torch.tools.det_train",
-           "--synthetic", "--epochs", "1", "--run-dir", run_dir]
+# runs a module as `python3 -m` does, then prints the launch counts
+_COUNTED_RUN = (
+    "import json, runpy, sys\n"
+    "from link_tpu_torch.ops import kernels\n"
+    "sys.argv = sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    if e.code:\n"
+    "        raise\n"
+    "print('launches ' + json.dumps({fn.__name__: fn.launches\n"
+    "                                for fn in kernels.KERNELS}))\n")
+
+
+def _cli(module, args, log_name, timeout):
+    """`python3 -m <module> <args>` in a fresh process, which then prints
+    its kernels' launch counts; its output into chiprun_out/<log_name>.log;
+    returns (seconds, that path without its suffix, the launch counts)."""
+    cmd = [sys.executable, "-c", _COUNTED_RUN, module, *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                          timeout=DET_TRAIN_CLI_TIMEOUT)
+                          timeout=timeout)
     s = time.perf_counter() - t0
-    out = os.path.join(HERE, "chiprun_out", "det_train_run")
+    out = os.path.join(HERE, "chiprun_out", log_name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
-    for line in proc.stdout.splitlines()[-6:]:
-        log(f"det_train: {line}")
+    for line in proc.stdout.splitlines()[-4:]:
+        log(f"{module.rsplit('.', 1)[-1]}: {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"det_train exited {proc.returncode}: "
+        raise AssertionError(f"{module} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
+    last = proc.stdout.splitlines()[-1]
+    return s, out, json.loads(last[len("launches "):])
+
+
+TRAIN_KERNELS = ("sorted_join", "window_conv", "gather_conv", "gather_wgrad")
+
+
+def _det_train_cli(extra, log_name, keep=False):
+    """`python3 -m link_tpu_torch.tools.det_train --synthetic --epochs 1
+    <extra>` in a fresh process: 8 synthetic frames, 4 steps; its log and
+    metrics go to chiprun_out/<log_name>.*, its run dir (a 130 MB
+    checkpoint) to runs/, removed after unless `keep`. Returns (the last
+    metrics record with the run's seconds and launch counts, the run dir);
+    fails unless 4 steps ran to a finite loss through every training
+    kernel."""
+    import shutil
+    args = ["--synthetic", "--epochs", "1", *extra]
+    name = "det_train " + " ".join(args)
+    run_dir = os.path.join(HERE, "runs", "chip_smoke_" + log_name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    s, out, launches = _cli("link_tpu_torch.tools.det_train",
+                            args + ["--run-dir", run_dir], log_name,
+                            DET_TRAIN_CLI_TIMEOUT)
     shutil.copy(os.path.join(run_dir, "metrics.jsonl"), out + ".jsonl")
-    shutil.rmtree(run_dir)
+    if not keep:
+        shutil.rmtree(run_dir)
     with open(out + ".jsonl") as f:
-        rec = [json.loads(line) for line in f][-1]
-    res["det_train_cli"] = {"s": s, **rec}
-    log(f"det_train --synthetic --epochs 1: {s:.1f} s, loss "
-        f"{rec['loss/train']:.4f}, {rec['samples_per_sec']:.3f} frames/s "
-        f"(data on the host included), peak memory {rec['peak_mem_gb']:.2f} "
-        "GB in a fresh process")
-    if not (rec["step"] == 4 and np.isfinite(rec["loss/train"])):
-        raise AssertionError(f"det_train: {rec}")
+        rec = {"s": s, **[json.loads(line) for line in f][-1],
+               "launches": launches}
+    log(f"{name}: {s:.1f} s, loss {rec['loss/train']:.4f}, "
+        f"{rec['samples_per_sec']:.3f} frames/s (data on the host "
+        f"included), peak memory {rec['peak_mem_gb']:.2f} GB in a fresh "
+        f"process, launches { {k: v for k, v in launches.items() if v} }")
+    if not (rec["step"] == 4 and np.isfinite(rec["loss/train"])) or min(
+            launches[k] for k in TRAIN_KERNELS) == 0:
+        raise AssertionError(f"{name}: {rec}")
+    return rec, run_dir
+
+
+def phase_det_train_cli(res, ctx):
+    """`det_train --synthetic --epochs 1` in a fresh process: the default
+    recipe (`_det_train_cli`, chiprun_out/det_train_run.*); the step's
+    peak memory in a fresh process comes from its log."""
+    res["det_train_cli"] = _det_train_cli([], "det_train_run")[0]
 
 
 def _launch_counts():
@@ -3603,6 +3687,7 @@ def phase_det_files(res, ctx):
 
 
 def _det_files(res, ctx):
+    import atexit
     import contextlib
     import json as _json
     import shutil
@@ -3655,6 +3740,12 @@ def _det_files(res, ctx):
                                     "2"])
             out["train_s"] = time.perf_counter() - t0
             launches["det_train"] = _launch_counts()
+            # the checkpoint outlives the work dir: det_two_stage's first
+            # stage
+            keep = tempfile.mkdtemp(prefix="det_ckpt_")
+            atexit.register(shutil.rmtree, keep, True)
+            ctx["det_ckpt"] = shutil.copy(ckpt, os.path.join(keep,
+                                                             "latest.pt"))
             runs = {"host": test("host"),
                     "device": test("device", "--device-nms"),
                     "flip": test("flip", "--double-flip"),
@@ -3765,6 +3856,472 @@ def _det_files(res, ctx):
                     for k in runs)
         + f"; host vs device NMS {compare}; tta_fuse kept "
         f"{out['fused_kept']}; launches {launches}")
+
+
+# --------------------------------------------------------------------------
+# det model variants: the hybrid dense backbone, the DCN head, two stages
+
+DET_DENSE_REL_TOL = 2e-4     # as tests/test_dense_backbone.py
+DENSE_LEVELS = (2, 1)        # dense_from_level=0 (85 M cells) is CPU-only
+DCN_GRAD_REL_TOL = 1e-4      # card vs CPU, each gradient of its largest
+TWO_STAGE_STEPS = 10
+TWO_STAGE_CLI_TIMEOUT = 300
+DET_CONFIG = os.path.join(HERE, "configs", "nusc", "voxelnet",
+                          "nusc_centerpoint_voxelnet_0075voxel_fix_bn_z_"
+                          "elkv3.py")
+
+
+def _det_model(level=None, dcn=False, dtype="float32"):
+    """CenterPoint-ELKv3 with seed-0 weights on the card, eval mode, batch
+    1 at det_test's capacity."""
+    import torch
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.tools import det_test
+    c = det_test.CAPACITY
+    return VoxelNet(batch_size=1, grid_shape=det_test.GRID,
+                    capacities=(c, c // 2, c // 4, c // 8), dtype=dtype,
+                    dcn_head=dcn, dense_from_level=level, device="cuda",
+                    generator=torch.Generator().manual_seed(0)).eval()
+
+
+def _det_test_runs(name, ctx, runs):
+    """`det_test` on det_files' val tree once for each (label, arguments)
+    of `runs`, under a user's TF32 flags. Returns ({label: seconds, ms per
+    frame, mAP, NDS, boxes kept per frame, launch counts, and under
+    --two-stage the second stage's ms per frame with proposals}, the
+    launches summed); fails unless each run's metrics and boxes are
+    finite, it went through sorted_join, window_conv and gather_conv, and
+    it launched rotated_nms ROTATED_NMS_LAUNCHES times a frame with
+    --device-nms and never without."""
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import det_test
+    infos = _nus_tree(ctx)
+    out, launches = {}, {}
+    with user_tf32():
+        for label, args in runs:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = det_test.evaluate(det_test.parse_args(
+                ["--info-path", infos["val"], "--root-path", ctx["nus_root"],
+                 *args]))
+            cnt = _launch_counts()
+            m = r["metrics"]
+            out[label] = {"s": time.perf_counter() - t0,
+                          "ms_per_frame": r["ms_per_frame"],
+                          "mAP": m["mean_ap"], "NDS": m["nds"],
+                          "kept": [len(x["pred_scores"])
+                                   for x in r["samples"]],
+                          "launches": cnt}
+            if "refine_ms" in r:
+                out[label]["refine_ms"] = r["refine_ms"]
+            _add_launches(launches, cnt)
+            nms = len(r["samples"]) * kernels.ROTATED_NMS_LAUNCHES
+            if (not np.isfinite([m["mean_ap"], m["nds"]]).all()
+                    or not all(np.isfinite(x["pred_boxes"]).all()
+                               for x in r["samples"])
+                    or cnt["rotated_nms"] != (nms if "--device-nms" in args
+                                              else 0)
+                    or min(cnt[k] for k in ("sorted_join", "window_conv",
+                                            "gather_conv")) == 0):
+                raise AssertionError(f"{name} {label}: {out[label]}")
+    log(f"{name}: " + "; ".join(
+        f"{k}: ms per frame {[round(v, 1) for v in r['ms_per_frame']]}"
+        + (f", second stage ms {[round(v, 2) for v in r['refine_ms']]}"
+           if "refine_ms" in r else "")
+        + f", mAP {r['mAP']:.4f} NDS {r['NDS']:.4f}, kept {r['kept']}, "
+        f"launches { {c: v for c, v in r['launches'].items() if v} }"
+        for k, r in out.items()))
+    return out, launches
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _sparse_work(model) -> tuple:
+    """(sorted_join, window_conv + gather_conv) launches per frame of a det
+    forward: the sparse levels' plans and convs. Fully sparse: 4 SubM
+    levels and 4 strided convs (DET_PLANS), `_det_conv_count` convs. With
+    dense_from_level=L: L SubM levels and L downs (2L joins), the stem, 7
+    SubM convs a level (4 in the blocks, 2 tails, the ELK block's local
+    mix) and the L downs (1 + 8L convs)."""
+    level = model.backbone.dense_from_level
+    if level is None:
+        return DET_PLANS, _det_conv_count(model)
+    return 2 * level, 1 + 8 * level
+
+
+def _variant_pass(name, model, batches, fn, rounds, unit="frame"):
+    """Under a user's TF32 flags (`user_tf32`): launch counts around one
+    pass of `fn` over the batches (after a warm one), the peak memory of
+    that pass, the best of `rounds` timed passes, and a profiled pass
+    (device busy, idle share, the join sites)."""
+    with user_tf32():
+        return _variant_pass_tf32(name, model, batches, fn, rounds, unit)
+
+
+def _variant_pass_tf32(name, model, batches, fn, rounds, unit):
+    import torch
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
+    n = len(batches)
+    fn(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for b in batches:
+        fn(b)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+    prof = _profile(lambda: [fn(b) for b in batches], n, min(times), unit,
+                    ranges=(JOIN_RANGE,))
+    joins, convs = _sparse_work(model)
+    _check_join_sites(prof, unit, joins)
+    out = {"ms_per_frame": times, "frames_per_s": 1e3 / min(times),
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_per_frame": {k: v / n for k, v in launches.items() if v},
+           "profile": prof}
+    log(f"{name}: ms per frame per round {[round(t, 2) for t in times]} "
+        f"({out['frames_per_s']:.2f} frames/s), launches per frame "
+        f"{out['launches_per_frame']} (expected sorted_join {joins}, "
+        f"window_conv + gather_conv {convs}), peak memory {peak:.2f} GB")
+    if (launches["sorted_join"] != n * joins
+            or launches["window_conv"] + launches["gather_conv"] != n * convs
+            or min(launches[k] for k in ("sorted_join", "window_conv",
+                                         "gather_conv")) == 0):
+        raise AssertionError(f"{name}: launches {launches}, expected {joins} "
+                             f"joins and {convs} convs per frame")
+    return out
+
+
+def phase_det_dense(res, ctx, rounds=3):
+    """The hybrid dense backbone (`dense_from_level`) at full width: the
+    backbone at levels 2 and 1 against the sparse one in float32 on the
+    hold frame, whose every level fits its capacity (BEV rel err <
+    DET_DENSE_REL_TOL), the same on the synthetic det frames (whose levels
+    1-3 overflow, so that the dense path keeps rows the sparse one drops:
+    logged, not gated); bf16 forward + decode of sparse, dense-2 and
+    dense-1 on the det frames, under a user's TF32 flags (the dense levels
+    convolve in float32: the SubM biases promote the features after level
+    0, as in JAX): launches per frame against the sparse levels' plans and
+    convs, frames/s, device busy, idle share, peak memory; then the
+    tools: `det_test --dense-from-level 2 --device-nms` with det_files'
+    checkpoint and `--dense-from-level 1 --device-nms` with the seed-0
+    weights on det_files' val tree (`_det_test_runs`), and `det_train
+    --synthetic --epochs 1 --dense-from-level 2` in a fresh process
+    (chiprun_out/det_train_dense_run.*)."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.inference import DEFAULT_TEST_CFG
+    from link_tpu_torch.models.center_head import decode_boxes
+    from link_tpu_torch.models.voxelnet import voxel_feature_extractor_v3
+    from link_tpu_torch.tools import det_test
+
+    def bev(model, batch):
+        v, c, npts, nnz = dp.det_inputs(batch, "cuda")
+        with torch.inference_mode():
+            return model.backbone(voxel_feature_extractor_v3(v, npts), c,
+                                  nnz, det_test.GRID)
+
+    hold = dp.collate_det([_hold_frame()[0]], det_test.CAPACITY)
+    frames = ctx["det_batches"]
+    sparse = _det_model()
+    want = {"hold": bev(sparse, hold)}
+    for f, b in enumerate(frames):
+        want[f"frame {f}"] = bev(sparse, b)
+    errs = {}
+    for level in DENSE_LEVELS:
+        model = _det_model(level)
+        model.load_state_dict(sparse.state_dict())
+        for key, ref in want.items():
+            errs[f"dense-{level} {key}"] = rel_err(
+                bev(model, hold if key == "hold" else frames[
+                    int(key.split()[1])]), ref)
+        del model
+        torch.cuda.empty_cache()
+    del sparse, want
+    res["det_dense_hold"] = errs
+    log(f"det dense vs sparse backbone, float32, BEV rel err: {errs} (the "
+        f"hold frame gated at {DET_DENSE_REL_TOL}; the synthetic frames "
+        "overflow the sparse levels 1-3, logged)")
+    for level in DENSE_LEVELS:
+        if not errs[f"dense-{level} hold"] < DET_DENSE_REL_TOL:
+            raise AssertionError(f"dense-{level} hold frame: "
+                                 f"{errs[f'dense-{level} hold']}")
+
+    cfg = dict(DEFAULT_TEST_CFG)
+    out, launches = {}, {}
+    for name, level in (("sparse", None), ("dense-2", 2), ("dense-1", 1)):
+        model = _det_model(level, dtype="bfloat16")
+        ncls = model.bbox_head.num_classes
+
+        def fwd(b, model=model, ncls=ncls):
+            with torch.inference_mode():
+                return decode_boxes(model(*dp.det_inputs(b, "cuda")), cfg,
+                                    ncls)
+        out[name] = _variant_pass(f"det {name} bf16 forward + decode",
+                                  model, frames, fwd, rounds)
+        if level is not None:
+            _add_launches(launches, out[name]["launches"])
+        del model, fwd
+        torch.cuda.empty_cache()
+    res["det_dense"] = out
+
+    runs, tool_launches = _det_test_runs(
+        "det_test --dense-from-level", ctx,
+        [("dense-2 device", ["--checkpoint", ctx["det_ckpt"],
+                             "--dense-from-level", "2", "--device-nms"]),
+         ("dense-1 seed0 device", ["--dense-from-level", "1",
+                                   "--device-nms"])])
+    res["det_dense_tools"] = runs
+    _add_launches(launches, tool_launches)
+    rec, _ = _det_train_cli(["--dense-from-level", "2"],
+                            "det_train_dense_run")
+    res["det_dense_train_cli"] = rec
+    _add_launches(launches, rec["launches"])
+    res["det_dense_launches"] = launches
+
+
+def _dcn_hold(res):
+    """One DCNSepHead (2 classes) at the 180 x 180 x 64 head input on the
+    card against the CPU in float32: every map, `deform_conv2d` on the
+    same inputs (forward and the gradients of x, offsets and weight), and
+    the adaptions' parameter gradients, each side with its own offsets
+    (logged)."""
+    import torch
+    from link_tpu_torch.models.dcn import DCNSepHead, deform_conv2d
+    gen = torch.Generator().manual_seed(3)
+    head = DCNSepHead(64, 2, device="cpu").eval()
+    for fa in (head.feature_adapt_cls, head.feature_adapt_reg):
+        fa.reset_parameters(gen)
+        with torch.no_grad():      # offsets that vary over the map
+            fa.conv_offset.weight.normal_(0.0, 0.05, generator=gen)
+    card = copy.deepcopy(head).cuda()
+    x = torch.randn(1, 64, 180, 180, generator=gen)
+    # [CPU, card] each
+    maps, pgrads = [], []
+    for dev, mod in (("cpu", head), ("cuda", card)):
+        maps.append(mod(x.to(dev)))
+        sum(v.square().sum() for v in maps[-1].values()).backward()
+        pgrads.append({k: p.grad.cpu() for k, p in mod.named_parameters()
+                       if "feature_adapt" in k})
+    map_err = {k: rel_err(maps[1][k].detach().cpu(), v.detach())
+               for k, v in maps[0].items()}
+    param_err = {k: rel_err(pgrads[1][k], g) for k, g in pgrads[0].items()}
+    # deform_conv2d on the same inputs on both (the card's offsets of the
+    # cls adaption): a sampling coordinate within float noise of an
+    # integer may floor to other corners where the two compute their own
+    # offsets, and the bilinear weights' derivative jumps there
+    fa = card.feature_adapt_cls
+    xh = x.permute(0, 2, 3, 1).contiguous()
+    with torch.no_grad():
+        off = torch.nn.functional.linear(
+            xh.cuda(), fa.conv_offset.weight[:, :, 0, 0],
+            fa.conv_offset.bias).cpu()
+    w = fa.deform_weight().detach().cpu()
+    cot = torch.randn(1, 180, 180, 64, generator=gen)
+    outs, grads = [], []
+    for dev in ("cpu", "cuda"):
+        args = [t.detach().to(dev).requires_grad_() for t in (xh, off, w)]
+        outs.append(deform_conv2d(*args, 3, 4))
+        outs[-1].backward(cot.to(dev))
+        grads.append([a.grad.cpu() for a in args])
+    grad_err = {name: rel_err(g, c) for name, g, c in zip(
+        ("x", "offset", "weight"), grads[1], grads[0])}
+    grad_err["forward"] = rel_err(outs[1].detach().cpu(), outs[0].detach())
+    frac = off - off.floor()
+    near = int(((frac < 1e-5) | (frac > 1 - 1e-5)).sum())
+    res["det_dcn_hold"] = {"maps": map_err, "deform_conv2d": grad_err,
+                           "param_grads": param_err,
+                           "offsets_near_integer": near}
+    log(f"DCNSepHead card vs CPU at 180 x 180 x 64, float32: maps "
+        f"{map_err}; deform_conv2d on the same inputs {grad_err}; the "
+        f"adaptions' parameter gradients {param_err} (each computing its "
+        f"own offsets; {near} of the card's offsets lie within 1e-5 of an "
+        "integer)")
+    if (max(map_err.values()) >= DET_GOLDEN_REL_TOL
+            or max(grad_err.values()) >= DCN_GRAD_REL_TOL
+            or min(float(g.abs().max()) for g in grads[0]) == 0):
+        raise AssertionError("DCNSepHead: card and CPU differ")
+
+
+def phase_det_dcn(res, ctx, rounds=3):
+    """The DCN head at full width: one DCNSepHead (2 classes) on the
+    180 x 180 x 64 head input, the card against the CPU in float32 (TF32
+    off): every map (< DET_GOLDEN_REL_TOL); `deform_conv2d` at the head's
+    shape on the same inputs (the card's offsets): its output and the
+    gradients of x, the offsets and the weight (< DCN_GRAD_REL_TOL of each
+    gradient's largest); the adaptions' parameter gradients, each side
+    with its own offsets, logged; under a user's TF32 flags, the bf16
+    CenterPoint-ELKv3 with `dcn_head=True`, forward + decode + device NMS
+    on the det frames (launches, frames/s, profile, peak memory) and the
+    DCN head's own device time beside the SepHead head's; then the tools:
+    `det_test --dcn-head --device-nms` with the seed-0 weights on
+    det_files' val tree, `det_train --synthetic --config
+    --stop-after-epoch 1` of a config with bbox_head.dcn_head=True in a
+    fresh process (its first epoch of the config's 20: 4 steps;
+    chiprun_out/det_train_dcn_run.*), and `det_test --config` of that
+    config with its checkpoint, --device-nms."""
+    import shutil
+    import tempfile
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.inference import DEFAULT_TEST_CFG
+    from link_tpu_torch.models.center_head import decode_boxes, device_nms
+    from link_tpu_torch.models.voxelnet import voxel_feature_extractor_v3
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import det_test
+
+    _dcn_hold(res)
+
+    cfg = dict(DEFAULT_TEST_CFG)
+    frames = ctx["det_batches"]
+    model = _det_model(dcn=True, dtype="bfloat16")
+    ncls = model.bbox_head.num_classes
+
+    def fwd(b):
+        with torch.inference_mode():
+            return device_nms(decode_boxes(
+                model(*dp.det_inputs(b, "cuda")), cfg, ncls), cfg)
+    out = _variant_pass("det dcn bf16 forward + decode + device NMS",
+                        model, frames, fwd, rounds)
+    n = len(frames)
+    if out["launches"]["rotated_nms"] != n * kernels.ROTATED_NMS_LAUNCHES:
+        raise AssertionError(f"det dcn: rotated_nms launches "
+                             f"{out['launches']['rotated_nms']}")
+    plain = _det_model(dtype="bfloat16")
+    v, c, npts, nnz = dp.det_inputs(frames[0], "cuda")
+    with torch.inference_mode(), user_tf32():
+        neck = model.neck(model.backbone(voxel_feature_extractor_v3(v, npts),
+                                         c, nnz, det_test.GRID))
+        out["head_ms"] = {
+            "dcn": cuda_ms(lambda: model.bbox_head(neck), 10, "dcn head"),
+            "sep": cuda_ms(lambda: plain.bbox_head(neck), 10, "sep head")}
+    log(f"det dcn: head device ms per frame {out['head_ms']} (DCNSepHead "
+        "against SepHead, bf16, on the same neck output)")
+    res["det_dcn"] = out
+    launches = dict(out["launches"])
+    del model, plain, neck, fwd, v, c, npts, nnz
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = os.path.join(tmp, "dcn.py")
+        with open(config, "w") as f:
+            f.write(open(DET_CONFIG).read()
+                    + "\nmodel['bbox_head']['dcn_head'] = True\n")
+        rec, run_dir = _det_train_cli(
+            ["--config", config, "--stop-after-epoch", "1"],
+            "det_train_dcn_run", keep=True)
+        res["det_dcn_train_cli"] = rec
+        _add_launches(launches, rec["launches"])
+        runs, tool_launches = _det_test_runs(
+            "det_test with the DCN head", ctx,
+            [("dcn-head seed0 device", ["--dcn-head", "--device-nms"]),
+             ("dcn config device", ["--config", config, "--checkpoint",
+                                    os.path.join(run_dir, "latest.pt"),
+                                    "--device-nms"])])
+        shutil.rmtree(run_dir)
+    res["det_dcn_tools"] = runs
+    _add_launches(launches, tool_launches)
+    res["det_dcn_launches"] = launches
+
+
+def phase_det_two_stage(res, ctx):
+    """The two-stage refinement at full width: the RoI head and the BEV
+    pooling on the card against tests/goldens/det_roi.npz (float32, the
+    bounds of tests/test_golden_det_dense.py); `det_train_two_stage
+    --synthetic --gt-proposals` for TWO_STAGE_STEPS steps in a fresh
+    process, its first stage det_files' checkpoint (log in
+    chiprun_out/det_train_two_stage.log); then `det_test --two-stage`
+    (`_det_test_runs`) on det_files' val tree with the new roi_head.pt and
+    first det_files' checkpoint, then the seed-0 first stage (whose frames
+    keep boxes, so that the second stage runs on each), each with host and
+    with device NMS: the second stage's own ms per frame with proposals,
+    one refinement for each frame with proposals."""
+    import shutil
+    import torch
+    from link_tpu_torch.models import two_stage as TS
+
+    z = np.load(os.path.join(HERE, "tests", "goldens", "det_roi.npz"))
+    sd = {k[6:].replace("__", "."): torch.from_numpy(np.array(z[k]))
+          for k in z.files if k.startswith("roisd_")}
+    head = TS.RoIHead(input_channels=128, device="cuda")
+    head.load_state_dict(sd, strict=True)
+    head.eval()
+    with torch.no_grad():
+        iou, reg = head(torch.from_numpy(z["roi_feats"][0]).cuda())
+        boxes = TS.generate_refined_boxes(
+            torch.from_numpy(z["roi_rois"][0]).cuda(), reg)
+        pooled = TS.BEVFeatureExtractor((-6.0, -6.0), (0.5, 0.5), 1)(
+            torch.from_numpy(z["bev_map"]).cuda(), TS.box_sample_points(
+                torch.from_numpy(z["bev_boxes"]).cuda()))
+    for got, want, atol in ((iou, z["roi_cls"][0, :, 0], 1e-5),
+                            (boxes, z["roi_boxes"][0], 1e-4),
+                            (pooled, z["bev_pooled"], 1e-5)):
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=atol)
+    res["det_roi_golden"] = {
+        "iou_abs_err": float(np.abs(iou.cpu().numpy()
+                                    - z["roi_cls"][0, :, 0]).max()),
+        "boxes_abs_err": float(np.abs(boxes.cpu().numpy()
+                                      - z["roi_boxes"][0]).max()),
+        "pooled_abs_err": float(np.abs(pooled.cpu().numpy()
+                                       - z["bev_pooled"]).max())}
+    log(f"det RoI head and BEV pooling on the card vs det_roi.npz: "
+        f"{res['det_roi_golden']}")
+    del head
+
+    run_dir = os.path.join(HERE, "runs", "chip_smoke_two_stage")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    s, log_path, train_launches = _cli(
+        "link_tpu_torch.tools.det_train_two_stage",
+        ["--synthetic", "--gt-proposals", "--steps", str(TWO_STAGE_STEPS),
+         "--epochs", "1", "--checkpoint", ctx["det_ckpt"], "--run-dir",
+         run_dir], "det_train_two_stage", TWO_STAGE_CLI_TIMEOUT)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rec = [json.loads(line) for line in f][-1]
+    roi_ckpt = os.path.join(run_dir, "roi_head.pt")
+    steps = torch.load(roi_ckpt, weights_only=True)["step"]
+    res["det_train_two_stage"] = {"s": s, "steps": steps, **rec,
+                                  "launches": train_launches}
+    log(f"det_train_two_stage --synthetic --gt-proposals, {steps} steps: "
+        f"{s:.1f} s, last logged {rec}, launches "
+        f"{ {k: v for k, v in train_launches.items() if v} }")
+    if (steps != TWO_STAGE_STEPS or not np.isfinite(rec["loss"])
+            or min(train_launches[k] for k in ("sorted_join", "window_conv",
+                                               "gather_conv")) == 0):
+        raise AssertionError(f"det_train_two_stage: {steps} steps, {rec}, "
+                             f"launches {train_launches}")
+
+    # det_files' checkpoint, whose few training steps leave few or no
+    # scores above the threshold, and the seed-0 first stage, whose frames
+    # keep 83 boxes a task: the second stage runs on those
+    two = ["--two-stage", "--two-stage-checkpoint", roi_ckpt]
+    ckpt = ["--checkpoint", ctx["det_ckpt"]]
+    runs, tool_launches = _det_test_runs(
+        "det_test --two-stage", ctx,
+        [("host", two + ckpt), ("device", two + ckpt + ["--device-nms"]),
+         ("seed0_host", two), ("seed0_device", two + ["--device-nms"])])
+    shutil.rmtree(run_dir, ignore_errors=True)
+    for name, r in runs.items():
+        # one refinement for each frame that kept proposals
+        if (len(r["refine_ms"]) != sum(k > 0 for k in r["kept"])
+                or (name.startswith("seed0") and min(r["kept"]) == 0)):
+            raise AssertionError(f"det_test --two-stage {name}: {r}")
+    res["det_two_stage"] = runs
+    launches = dict(train_launches)
+    _add_launches(launches, tool_launches)
+    res["det_two_stage_launches"] = launches
 
 
 # --------------------------------------------------------------------------
@@ -4003,6 +4560,68 @@ def phase_path_shapes(res, ctx, iters=10):
         raise AssertionError(f"family join sites {sites}, expected {want}")
     _family_train_shapes(res, ctx, kernels, recorders, iters)
     _tta_shapes(res, ctx, kernels)
+    _variant_shapes(res, ctx, kernels)
+
+
+def _variant_shapes(res, ctx, kernels, iters=5):
+    """Every kernel shape that the det variants add, on the inputs one more
+    forward gives them: the two-stage tool's first stage (float32, batch 1
+    at 131,072 rows, on a synthetic train frame) and the sparse levels 0-1
+    of the bf16 dense-2 backbone (det_dense's model, on a det frame):
+    `gather_conv` and `window_conv` against their twins (f32 < 1e-5, bf16 <
+    8e-3, bit-equal over two runs), `sorted_join` exactly at each call;
+    each timed beside its bound."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.data.nuscenes import SyntheticNuScenes
+    from link_tpu_torch.sparse.coords import CoordTable
+    from link_tpu_torch.tools import det_train_two_stage as two
+    frame = SyntheticNuScenes(length=1, mode="train", max_voxels=120000)[0]
+    runs = {"two-stage first stage f32": (
+        two.first_stage_model(None, "cuda"),
+        dp.collate_det([frame], two.CAPACITY)),
+        "dense-2 bf16": (_det_model(2, dtype="bfloat16"),
+                         ctx["det_batches"][0])}
+    conv, window, joins = [], [], []
+    for role, (model, batch) in runs.items():
+        with torch.inference_mode(), ShapeRecorder() as rec:
+            model(*dp.det_inputs(batch, "cuda"))
+        torch.cuda.synchronize()
+        for feats, idx, weight in rec.conv.values():
+            conv.append(_conv_case(kernels, feats, idx, weight, iters,
+                                   role=role))
+        for feats, plan, weight in rec.window.values():
+            window.append(dict(_window_case(kernels, feats, plan, weight,
+                                            iters), role=role))
+        for i, (hi, lo, perm, base, offs, mult, mode) in enumerate(
+                rec.joins):
+            joins.append(_join_case(kernels, CoordTable(hi, lo, perm), base,
+                                    offs, mode, iters, mult=mult,
+                                    role=f"{role} join {i}"))
+        want = _sparse_work(model)[0]
+        if len(rec.joins) != want or not rec.window:
+            raise AssertionError(f"{role}: {len(rec.joins)} joins (expected "
+                                 f"{want}), {len(rec.window)} window_conv "
+                                 "shapes")
+        del rec
+    del runs
+    torch.cuda.empty_cache()
+    res["variant_conv_cases"] = conv
+    res["variant_window_cases"] = window
+    res["variant_join_cases"] = joins
+    log(f"det variant shapes (two-stage first stage at {two.CAPACITY} rows, "
+        f"the sparse levels of dense-2): gather_conv at {len(conv)}, "
+        f"window_conv at {len(window)} shapes, each within its tolerance "
+        f"and bit-equal over two runs; sorted_join at {len(joins)} calls, "
+        "each equal to its twin; kernel / bound ms: gather_conv "
+        f"{sum(c['ms'] for c in conv):.3f} / "
+        f"{sum(c['bound_ms'] for c in conv):.3f}, window_conv "
+        f"{sum(c['ms'] for c in window):.3f} / "
+        f"{sum(c['bound_ms'] for c in window):.3f}, sorted_join "
+        f"{sum(c['ms'] for c in joins):.3f} / "
+        f"{sum(c['bound_ms'] for c in joins):.3f}")
+    if not conv:
+        raise AssertionError("det variant shapes: no gather_conv shape")
 
 
 def _family_train_shapes(res, ctx, kernels, recorders, iters):
@@ -4123,6 +4742,9 @@ MAIN_PATHS = {"seg": "launches",
               "det": "det_launches", "det_serve": "det_serve_launches",
               "det_tta": "det_tta_launches",
               "det_files": "det_files_launches",
+              "det_dense": "det_dense_launches",
+              "det_dcn": "det_dcn_launches",
+              "det_two_stage": "det_two_stage_launches",
               "train": "train_launches", "det_train": "det_train_launches",
               "probes": "probe_launches"}
 
@@ -4133,11 +4755,15 @@ def kernels_line(res):
     counted runs (one seg pass of 4 scans, one pass of the same 4 scans of
     each other seg family, one det pass of 2 frames, one
     device-NMS `predict` of the 2 frames, one double-flip pass of 2 val
-    frames, the det tools' runs on the nuScenes-format files, one train
-    step, one training step of each other seg family, one det train step,
-    one run of the probe tool), and the error, times and bound
-    of `KERNEL_CASE`. A kernel without a case or without a launch on any
-    main path fails the script."""
+    frames, the det tools' runs on the nuScenes-format files, one pass of
+    the dense-2 and of the dense-1 backbone over the 2 det frames with the
+    dense det_test and det_train runs, one DCN pass of them with device
+    NMS with the DCN det_test and det_train runs, det_train_two_stage and
+    the four `det_test --two-stage` runs, one train step, one training
+    step of each other seg family, one det train step, one run of the
+    probe tool), and the error, times and bound of `KERNEL_CASE`. A kernel
+    without a case or without a launch on any main path fails the
+    script."""
     from link_tpu_torch.ops import kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4195,8 +4821,8 @@ def main() -> int:
                   phase_det_train_grad, phase_det_train_golden,
                   phase_det_train_main,
                   phase_det_train_profile, phase_det_train_cli,
-                  phase_det_files,
-                  phase_path_shapes, phase_probes):
+                  phase_det_files, phase_det_dense, phase_det_dcn,
+                  phase_det_two_stage, phase_path_shapes, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

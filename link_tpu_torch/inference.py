@@ -59,6 +59,13 @@ def config_test_cfg(path: str) -> Dict:
                 out_size_factor=t.out_size_factor)
 
 
+def config_dcn_head(path: Optional[str]) -> bool:
+    """Whether a py config asks for the DCN head (model.bbox_head.dcn_head,
+    reference center_head.py:221-238); False without a config."""
+    return bool(path and load_py_config(path).model.bbox_head.get(
+        "dcn_head", False))
+
+
 def masked_rows(task_outs) -> List[Tuple[np.ndarray, ...]]:
     """Per task, the (boxes, scores, labels) of batch row 0 where its mask
     is set, on the host: the tasks' rows are packed and compacted on the

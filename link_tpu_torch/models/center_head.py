@@ -3,9 +3,10 @@ decode.
 
 PyTorch counterpart of `link_tpu/models/center_head.py` (reference
 detection/det3d/models/bbox_heads/center_head.py:67-446 and
-losses/centernet_loss.py:6-62) with `dcn_head=False` (every published LinK
-config): the head, the training loss (`center_head_loss`: FastFocal on the
-heatmaps + weight * code-weighted masked L1 on the boxes), the decode
+losses/centernet_loss.py:6-62): the head (with `dcn_head=True` a
+DCNSepHead per task, `models/dcn.py`; off in every published LinK
+config), the training loss (`center_head_loss`: FastFocal on the heatmaps
++ weight * code-weighted masked L1 on the boxes), the decode
 (with the fuse of double-flip TTA, `double_flip_fuse`), and the rotated
 NMS on the device (`device_nms`, through the `rotated_nms` kernel). Six task
 groups over the nuScenes classes; per task a SepHead with branches reg(2) /
@@ -61,18 +62,24 @@ def head_branch(cin: int, out_channels: int, num_conv: int,
 
 
 class SepHead(nn.Module):
+    """The branches of COMMON_HEADS and, with `with_hm`, the heatmap (the
+    DCN head's task_head has no hm: its cls_head makes it)."""
+
     def __init__(self, cin: int, num_cls: int, num_hm_conv: int = 2,
-                 init_bias: float = -2.19, device=None):
+                 init_bias: float = -2.19, with_hm: bool = True,
+                 device=None):
         super().__init__()
+        self.names = [n for n, _ in COMMON_HEADS] + (["hm"] if with_hm
+                                                     else [])
         for name, (ch, ncv) in COMMON_HEADS:
             self.add_module(name, head_branch(cin, ch, ncv, device=device))
-        self.hm = head_branch(cin, num_cls, num_hm_conv, init_bias=init_bias,
-                              device=device)
+        if with_hm:
+            self.hm = head_branch(cin, num_cls, num_hm_conv,
+                                  init_bias=init_bias, device=device)
 
     def forward(self, h: torch.Tensor) -> Dict[str, torch.Tensor]:
-        names = [n for n, _ in COMMON_HEADS] + ["hm"]
         return {n: run_dense(getattr(self, n), h).permute(0, 2, 3, 1)
-                for n in names}
+                for n in self.names}
 
 
 class CenterHead(nn.Module):
@@ -80,21 +87,29 @@ class CenterHead(nn.Module):
     def __init__(self, in_channels: int = 512,
                  tasks: Tuple[Tuple[str, ...], ...] = NUSC_TASKS,
                  share_conv_channel: int = 64, num_hm_conv: int = 2,
-                 init_bias: float = -2.19, dtype: str = "float32",
-                 device="cuda"):
+                 init_bias: float = -2.19, dcn_head: bool = False,
+                 dtype: str = "float32", device="cuda"):
         super().__init__()
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self.dtype = _DTYPES[dtype]
+        self.dcn_head = dcn_head
         self.num_classes = [len(t) for t in tasks]
         self.shared_conv = nn.Sequential(
             nn.Conv2d(in_channels, share_conv_channel, 3, padding=1,
                       bias=True, device=device),
             nn.BatchNorm2d(share_conv_channel, **HEAD_NORM, device=device),
             nn.ReLU())
-        self.tasks = nn.ModuleList([
-            SepHead(share_conv_channel, len(t), num_hm_conv, init_bias,
-                    device=device) for t in tasks])
+        if dcn_head:
+            # reference center_head.py:221-238: a DCNSepHead per task
+            from .dcn import DCNSepHead
+            self.tasks = nn.ModuleList([
+                DCNSepHead(share_conv_channel, len(t), init_bias=init_bias,
+                           device=device) for t in tasks])
+        else:
+            self.tasks = nn.ModuleList([
+                SepHead(share_conv_channel, len(t), num_hm_conv, init_bias,
+                        device=device) for t in tasks])
 
     def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         """x: (B, C, H, W) -> per-task dicts of (B, H, W, c) maps."""

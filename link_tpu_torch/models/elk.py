@@ -1,8 +1,9 @@
 """ELK block: linear large-kernel aggregation via trig reparameterization.
 
 PyTorch counterpart of `link_tpu/models/elk.py` (reference
-segmentation/core/models/semantic_kitti/linkunet.py:94-185), SparseTensor
-input only. The position-dependent kernel weight is reparameterized in the
+segmentation/core/models/semantic_kitti/linkunet.py:94-185), over a
+SparseTensor or, at the det backbone's dense levels, a DenseGrid. The
+position-dependent kernel weight is reparameterized in the
 {sin, cos, cos_x} bases, so the large-window conv factorizes into per-voxel
 modulation -> block pre-aggregation (voxel_to_aux) -> r^3 window sum
 (aux_to_voxel) -> per-voxel demodulation.
@@ -12,6 +13,11 @@ the positional Linear has full width (3, inc) but only its first inc/2
 columns are used, tiled twice. `normalize_coords=True` is the encoder-only
 model's variant (reference linkencoder.py:165): under the cos_x basis the
 positional map reads coords / stride.
+
+On a DenseGrid the cells' grid coordinates stand in for the rows' coords,
+the LayerNorm'd input is re-zeroed at the empty cells, and voxel_to_aux /
+aux_to_voxel collapse to block sums and an r^3 box sum over the block grid,
+weighted by the occupied cells per block (`sparse/dense_grid.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from torch import nn
 
 from ..nn.modules import Linear, SparseConv3d, SparseLayerNorm
 from ..ops.elk import aux_to_voxel, elk_aux_window_dense, use_dense_aux, voxel_to_aux
+from ..sparse.dense_grid import (DenseGrid, block_broadcast, block_pool,
+                                 box_sum, cell_coords_xyz)
 from ..sparse.tensor import SparseTensor
 
 
@@ -59,12 +67,23 @@ class ELKBlock(nn.Module):
         self.norm_local = SparseLayerNorm(inc, device=device)
 
     def forward(self, st: SparseTensor, s: int, r: int) -> SparseTensor:
+        dense = isinstance(st, DenseGrid)
         f_input = self.pre_mix(st.feats)
+        if dense:
+            # empty cells must add nothing to the block pooling; the
+            # LayerNorm's bias made them nonzero
+            f_input = torch.where(st.mask[..., None], f_input,
+                                  torch.zeros_like(f_input))
         local = self.local_mix(st)
 
-        c3 = st.coords[:, :3].to(torch.float32)
-        if self.baseop == "cos_x" and self.normalize_coords:
-            c3 = c3 / st.stride[0]
+        if dense:
+            if self.normalize_coords:
+                raise ValueError("normalize_coords has no dense form")
+            c3 = cell_coords_xyz(st)        # (Z, Y, X, 3), broadcast over B
+        else:
+            c3 = st.coords[:, :3].to(torch.float32)
+            if self.baseop == "cos_x" and self.normalize_coords:
+                c3 = c3 / st.stride[0]
         pw = self.pos_weight(c3)
         if self.det_grouping:
             half = pw[..., :self.inc // 2]
@@ -86,8 +105,18 @@ class ELKBlock(nn.Module):
         # rows and sums in f32 inside spvoxelize / spdevoxelize
         mod = mod.to(st.feats.dtype)
 
-        gs = use_dense_aux(st, s, r, mod.shape[-1])
-        if gs is not None:
+        gs = None if dense else use_dense_aux(st, s, r, mod.shape[-1])
+        if dense:
+            _, z, y, x, _ = st.feats.shape
+            sums, counts = block_pool(mod, st.mask, s)
+            mean = sums / torch.clamp(counts, min=1.0)[..., None]
+            f = torch.cat([mean, torch.ones_like(counts)[..., None]], dim=-1)
+            win = box_sum(f * counts[..., None], r)
+            denom = win[..., -1:]
+            blocks = win[..., :-1] / torch.where(denom == 0,
+                                                 torch.ones_like(denom), denom)
+            agg = block_broadcast(blocks, s, (z, y, x)).to(st.feats.dtype)
+        elif gs is not None:
             agg = elk_aux_window_dense(mod, st.coords, s, r, gs)
         else:
             st_mod = st.replace(feats=mod)
@@ -106,4 +135,5 @@ class ELKBlock(nn.Module):
 
         new = self.norm(new)
         local_f = self.norm_local(local.feats)
-        return st.replace(feats=torch.relu(new + local_f))
+        out = torch.relu(new + local_f)
+        return st.masked(out) if dense else st.replace(feats=out)

@@ -33,19 +33,20 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float64": torch.float64}
 
 
-def batch_norm_2d(mod: nn.BatchNorm2d, h: torch.Tensor) -> torch.Tensor:
-    """`mod` over NCHW `h` in float32 (float64 stays float64). Eval mode
-    reads the running statistics; training normalizes with the batch's
-    and moves the running ones by `mod.momentum` towards the batch mean and
-    the biased batch variance (flax's update)."""
+def batch_norm_2d(mod: nn.modules.batchnorm._BatchNorm,
+                  h: torch.Tensor) -> torch.Tensor:
+    """`mod` over NCHW (or (N, C)) `h` in float32 (float64 stays float64).
+    Eval mode reads the running statistics; training normalizes with the
+    batch's and moves the running ones by `mod.momentum` towards the batch
+    mean and the biased batch variance (flax's update)."""
     x = h.to(torch.promote_types(h.dtype, torch.float32))
     if not mod.training:
         return F.batch_norm(x, mod.running_mean, mod.running_var, mod.weight,
                             mod.bias, False, 0.0, mod.eps)
+    red = (0,) + tuple(range(2, x.dim()))
     with torch.no_grad():
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min(x.square().mean(dim=(0, 2, 3)) - mean.square(),
-                              0.0)
+        mean = x.mean(dim=red)
+        var = torch.clamp_min(x.square().mean(dim=red) - mean.square(), 0.0)
         for buf, batch in ((mod.running_mean, mean), (mod.running_var, var)):
             buf.mul_(1 - mod.momentum).add_(mod.momentum * batch.to(buf.dtype))
         mod.num_batches_tracked.add_(1)

@@ -1,13 +1,21 @@
 """Detection sparse backbone: SpMiddleResNetFHDELKv3.
 
 PyTorch counterpart of `link_tpu/models/scn.py` (reference
-detection/det3d/models/backbones/scn.py:453-627), fully sparse (the
-DenseGrid hybrid of `dense_from_level` is not ported). spconv ResNet: a
+detection/det3d/models/backbones/scn.py:453-627). spconv ResNet: a
 SubM stem (5 -> 16), 4 levels of 2 SparseBasicBlocks at planes
 [16, 32, 64, 128] with SparseConv3d(k3, s2, p1) downsamples (z padding 0 at
 the last), each level fused with a parallel TSELK block (cos basis, block
 7, r 3) + SubM tail by add + ReLU, an extra z-compress SparseConv3d((3,1,1),
 (2,1,1)), and .dense() -> (B, C*D, H, W) BEV.
+
+`dense_from_level=L` runs the levels from L on (0-based, as in the JAX
+package) on a masked dense grid (`sparse/dense_grid.py`): the rows of
+level L are scattered into a DenseGrid after that level's strided down (at
+L = 0 after the stem), and from there the submanifold convs, the strided
+downs, the ELK blocks and the extra conv run as dense convolutions with the
+same parameters, exact but for the capacity overflow the dense grid cannot
+have; `dense_to_bev` gives the BEV map in `to_dense_bev`'s channel order.
+None (the default) is fully sparse.
 
 Parameters carry the reference det3d `state_dict` keys and layouts
 (`conv_input.0.weight` (Co, kz, ky, kx, Ci), `conv1.0.conv1.bias`,
@@ -25,7 +33,10 @@ from torch import nn
 
 from ..nn.modules import SparseBatchNorm, SparseReLU, _uniform
 from ..sparse import conv as spconv
-from ..sparse.spconv_engine import ensure_level_table, spconv3d, to_dense_bev
+from ..sparse.dense_grid import (DenseGrid, dense_spconv, dense_subm_conv,
+                                 dense_to_bev, to_dense_grid)
+from ..sparse.spconv_engine import (ensure_level_table, spconv3d,
+                                    spconv_out_shape, to_dense_bev)
 from ..sparse.tensor import SparseTensor, make_sparse_tensor
 from .elk import ELKBlock
 
@@ -72,6 +83,8 @@ class SubMConv3d(SpconvWeight):
                          generator=generator)
 
     def forward(self, st: SparseTensor) -> SparseTensor:
+        if isinstance(st, DenseGrid):
+            return dense_subm_conv(st, self.subm_kernel(), 3, self.bias)
         return spconv.conv3d(st, self.subm_kernel(), 3, bias=self.bias,
                              prefer_window=True)
 
@@ -93,11 +106,17 @@ class SpConvDown(nn.Sequential):
         self.batch_size = batch_size
 
     def forward(self, x: SparseTensor, in_shape):
-        y, out_shape = spconv3d(x, self[0].engine_kernel(), self.kernel_size,
-                                in_shape, stride=self.stride,
-                                padding=self.padding,
-                                out_capacity=self.out_capacity,
-                                batch_size=self.batch_size)
+        if isinstance(x, DenseGrid):
+            y = dense_spconv(x, self[0].engine_kernel(), self.kernel_size,
+                             self.stride, self.padding)
+            out_shape = spconv_out_shape(in_shape, self.kernel_size,
+                                         self.stride, self.padding)
+        else:
+            y, out_shape = spconv3d(x, self[0].engine_kernel(),
+                                    self.kernel_size, in_shape,
+                                    stride=self.stride, padding=self.padding,
+                                    out_capacity=self.out_capacity,
+                                    batch_size=self.batch_size)
         y = self[1](y)
         return y.replace(feats=torch.relu(y.feats)), out_shape
 
@@ -126,11 +145,15 @@ class SpMiddleResNetFHDELKv3(nn.Module):
 
     def __init__(self, num_input_features: int = 5, block_sz: int = 7,
                  elk_r: int = 3, capacities: Tuple[int, ...] = DET_CAPACITIES,
-                 batch_size: int = 1, dtype: str = "float32", device="cuda",
+                 batch_size: int = 1, dtype: str = "float32",
+                 dense_from_level: Optional[int] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+        if dense_from_level is not None and not 0 <= dense_from_level <= 3:
+            raise ValueError("dense_from_level must be None or 0-3")
+        self.dense_from_level = dense_from_level
         self.block_sz, self.elk_r = block_sz, elk_r
         self.capacities = tuple(capacities)
         self.batch_size = batch_size
@@ -178,11 +201,20 @@ class SpMiddleResNetFHDELKv3(nn.Module):
         for lvl in range(1, 5):
             if lvl > 1:
                 st, shape = getattr(self, f"down{lvl}")(st, shape)
-                ensure_level_table(st, shape, self.batch_size)
+                if isinstance(st, SparseTensor):
+                    ensure_level_table(st, shape, self.batch_size)
+            # to the dense grid after level L's strided down, on the
+            # level-L grid (lvl - 1 is the JAX package's 0-based level)
+            if (self.dense_from_level is not None
+                    and lvl - 1 >= self.dense_from_level
+                    and isinstance(st, SparseTensor)):
+                st = to_dense_grid(st, shape, self.batch_size)
             y = getattr(self, f"conv{lvl}")(st)
             y = getattr(self, f"conv{lvl}_tail")(y)
             lk = getattr(self, f"elk{lvl}")(st, self.block_sz, self.elk_r)
             lk = getattr(self, f"elk{lvl}_tail")(lk)
             st = y.replace(feats=torch.relu(y.feats + lk.feats))
         st, shape = self.extra_conv(st, shape)
+        if isinstance(st, DenseGrid):
+            return dense_to_bev(st)
         return to_dense_bev(st, shape, self.batch_size)

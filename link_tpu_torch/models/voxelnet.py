@@ -9,12 +9,13 @@ readers/voxel_encoder.py:8-25), for serving and training
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from .center_head import NUSC_TASKS, CenterHead
+from .dcn import FeatureAdaption
 from .rpn import RPN
 from .scn import DET_CAPACITIES, SpMiddleResNetFHDELKv3
 
@@ -29,45 +30,62 @@ def voxel_feature_extractor_v3(voxels: torch.Tensor,
 
 class VoxelNet(nn.Module):
     """`dtype` is the compute dtype of backbone, neck and head (parameters
-    and the box decode stay float32)."""
+    and the box decode stay float32). `dcn_head` gives the head a
+    DCNSepHead per task; `dense_from_level` runs the backbone's levels from
+    that one on on a masked dense grid (`models/scn.py`); `return_bev`
+    makes the forward return (preds, the neck's output), the BEV map of
+    the two-stage refinement (reference voxelnet.py forward_two_stage)."""
 
     def __init__(self, num_input_features: int = 5, batch_size: int = 1,
                  grid_shape: Tuple[int, int, int] = (1440, 1440, 40),
                  capacities: Tuple[int, ...] = DET_CAPACITIES,
                  tasks: Tuple[Tuple[str, ...], ...] = NUSC_TASKS,
-                 dtype: str = "float32", device="cuda",
+                 dtype: str = "float32", dcn_head: bool = False,
+                 return_bev: bool = False,
+                 dense_from_level: Optional[int] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.grid_shape = tuple(grid_shape)
         self.tasks = tuple(tuple(t) for t in tasks)
+        self.return_bev = return_bev
         self.backbone = SpMiddleResNetFHDELKv3(
             num_input_features=num_input_features, capacities=capacities,
-            batch_size=batch_size, dtype=dtype, device=device,
+            batch_size=batch_size, dtype=dtype,
+            dense_from_level=dense_from_level, device=device,
             generator=generator)
         self.neck = RPN(dtype=dtype, device=device)
-        self.bbox_head = CenterHead(tasks=self.tasks, dtype=dtype,
-                                    device=device)
+        self.bbox_head = CenterHead(tasks=self.tasks, dcn_head=dcn_head,
+                                    dtype=dtype, device=device)
         if generator is not None:
             self._init_dense(generator)
 
     def _init_dense(self, generator: torch.Generator) -> None:
         """Seeded uniform init of the dense convs (the torch default bound
         1/sqrt(fan_in)), drawn on the CPU so a seed gives the same weights
-        on every device; the hm branches keep their -2.19 final bias."""
+        on every device; the hm branches keep their -2.19 final bias, and a
+        DCN head's adaptions their own init (`FeatureAdaption`)."""
         with torch.no_grad():
             for name, mod in self.named_modules():
-                if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                if isinstance(mod, FeatureAdaption):
+                    mod.reset_parameters(generator)
+                elif (isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d))
+                      and not name.endswith("conv_offset")):
                     w = mod.weight
                     bound = w[0].numel() ** -0.5    # torch's fan_in
                     w.copy_(torch.empty(w.shape).uniform_(
                         -bound, bound, generator=generator))
-                    if mod.bias is not None and not name.endswith("hm.3"):
+                    if mod.bias is not None and not name.endswith(
+                            ("hm.3", "cls_head.3")):
                         mod.bias.copy_(torch.empty(mod.bias.shape).uniform_(
                             -bound, bound, generator=generator))
 
     def forward(self, voxels: torch.Tensor, coords: torch.Tensor,
                 num_points: torch.Tensor,
-                nnz: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+                nnz: torch.Tensor):
+        """Per-task dicts of NHWC maps; with `return_bev` also the neck's
+        (B, C, H, W) output."""
         feats = voxel_feature_extractor_v3(voxels, num_points)
         bev = self.backbone(feats, coords, nnz, self.grid_shape)
-        return self.bbox_head(self.neck(bev))
+        x = self.neck(bev)
+        preds = self.bbox_head(x)
+        return (preds, x) if self.return_bev else preds

@@ -7,7 +7,10 @@ for a 1x1x1 kernel), `Linear.weight` is torch's (out, in), and
 `SparseBatchNorm` keeps BatchNorm1d's parameters and buffers.
 
 Parameters are drawn on the CPU from an optional `torch.Generator` and then
-moved to `device`.
+moved to `device`. `SparseConv3d` and `SparseBatchNorm` also take a
+`DenseGrid` (the det backbone's dense levels): the submanifold conv runs as
+a masked dense conv, and the norm's statistics are taken over the occupied
+cells only, its output re-zeroed at the empty ones.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 
 from ..sparse import conv as spconv
 from ..sparse import coords as coordlib
+from ..sparse.dense_grid import DenseGrid, dense_subm_conv
 from ..sparse.tensor import SparseTensor
 
 
@@ -54,6 +58,12 @@ class SparseConv3d(nn.Module):
         self.kernel = _uniform(shape, std, generator, device)
 
     def forward(self, st: SparseTensor) -> SparseTensor:
+        if isinstance(st, DenseGrid):
+            if (self.transposed or self.dilation != 1
+                    or coordlib.make_ntuple(self.stride) != (1, 1, 1)):
+                raise ValueError("a DenseGrid takes only the submanifold "
+                                 "conv (stride 1, no dilation)")
+            return dense_subm_conv(st, self.kernel, self.kernel_size)
         return spconv.conv3d(st, self.kernel, kernel_size=self.kernel_size,
                              stride=self.stride,
                              dilation=self.dilation,
@@ -82,14 +92,18 @@ class SparseBatchNorm(nn.Module):
 
     def forward(self, st: SparseTensor) -> SparseTensor:
         f32 = st.feats.to(torch.float32)
+        dense = isinstance(st, DenseGrid)
         if self.training:
-            mask = st.valid_mask().to(torch.float32)[:, None]
+            # a dense grid's occupied cells are the sparse tensor's rows
+            mask = (st.mask[..., None] if dense
+                    else st.valid_mask()[:, None]).to(torch.float32)
+            red = tuple(range(f32.dim() - 1))
             n = torch.clamp(mask.sum(), min=1.0)
-            mean = (f32 * mask).sum(0) / n
+            mean = (f32 * mask).sum(red) / n
             # torch.maximum, not clamp: where the variance is exactly 0 (a
             # level with one voxel, a dead channel) it halves the gradient
             # as jnp.maximum does; clamp would pass it whole
-            var = (f32.square() * mask).sum(0) / n - mean.square()
+            var = (f32.square() * mask).sum(red) / n - mean.square()
             var = torch.maximum(var, torch.zeros_like(var))
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
@@ -102,6 +116,9 @@ class SparseBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         out = (f32 - mean) * inv + self.bias
+        if dense:
+            # re-zero the empty cells (the affine bias is nonzero there)
+            return st.masked(out.to(st.feats.dtype))
         return st.replace(feats=out.to(st.feats.dtype))
 
 

@@ -21,19 +21,29 @@ come from `eval/nuscenes_eval` on the frames' unaugmented GT.
                      of the kept rows to the host);
   --out FILE         writes the per-frame predictions (and GT) as JSON, the
                      input of tools/tta_fuse;
-  --save-vis FILE    writes points, detections and GT for a viewer.
+  --save-vis FILE    writes points, detections and GT for a viewer;
+  --two-stage        refines each frame's proposals (after NMS, at most
+                     500) with the RoI head over the neck's BEV map
+                     (`models/two_stage.TwoStageRefinement`; reference
+                     detectors/two_stage.py): 5-point BEV pooling, the
+                     score sqrt(sigmoid(iou) * first score), the refined
+                     boxes; its weights from --two-stage-checkpoint (the
+                     `roi_head.pt` of tools/det_train_two_stage, which
+                     implies --two-stage) or drawn from seed 1;
+  --dcn-head         the DCN head (also a config's bbox_head.dcn_head);
+  --dense-from-level L  the backbone's levels from L on run on a masked
+                     dense grid (`models/scn.py`).
 
 Usage:
   python3 -m link_tpu_torch.tools.det_test --checkpoint runs/det/latest.pt \
       [--config configs/nusc/voxelnet/...elkv3.py] [--info-path P] \
       [--root-path D] [--synthetic] [--limit N] [--double-flip] \
       [--tt-rotation DEG] [--dtype bfloat16] [--device-nms] [--out F] \
-      [--device cpu]
+      [--two-stage [--two-stage-checkpoint roi_head.pt]] [--dcn-head] \
+      [--dense-from-level L] [--device cpu]
 
 Without the info pkl (and without --synthetic) the tool raises
-FileNotFoundError naming the path. The DCN head, the two-stage refinement
-and the hybrid dense backbone are not ported (ROADMAP §1 item 6): their
-options raise NotImplementedError.
+FileNotFoundError naming the path.
 """
 
 from __future__ import annotations
@@ -51,18 +61,19 @@ from ..data import det_pipeline as dp
 from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
 from ..eval import nuscenes_eval as NE
 from ..eval.tta_fusion import rotate_predictions_back
-from ..inference import (DEFAULT_TEST_CFG, config_test_cfg, host_nms,
-                         masked_rows)
+from ..inference import (DEFAULT_TEST_CFG, config_dcn_head,
+                         config_test_cfg, host_nms, masked_rows)
+from ..models import two_stage as TS
 from ..models.center_head import decode_boxes, device_nms
 from ..models.voxelnet import VoxelNet
-from ..utils.config import load_config
 
 TEST_CFG = dict(DEFAULT_TEST_CFG)   # the JAX tool's TEST_CFG
 GRID = (1440, 1440, 40)             # the grid of 0.075 m voxels
 CAPACITY = 163840                   # level-0 rows of one frame
 FLIP_GROUP = 4                      # [orig, y-flip, x-flip, xy-flip]
 VAL_MAX_VOXELS = 160000
-UNPORTED = "is not ported yet (ROADMAP §1 item 6)"
+N_ROI = 500                         # the reference's NMS_POST_MAXSIZE
+BEV_CHANNELS = 512                  # the neck's output
 
 
 def parse_args(argv=None):
@@ -85,10 +96,16 @@ def parse_args(argv=None):
                          "rotated back")
     ap.add_argument("--double-flip", action="store_true",
                     help="4-flip TTA in one batch, fused at decode")
-    ap.add_argument("--two-stage", action="store_true")
-    ap.add_argument("--two-stage-checkpoint", default=None)
-    ap.add_argument("--dcn-head", action="store_true")
-    ap.add_argument("--dense-from-level", type=int, default=None)
+    ap.add_argument("--two-stage", action="store_true",
+                    help="RoI refinement second stage over the NMS "
+                         "proposals")
+    ap.add_argument("--two-stage-checkpoint", default=None,
+                    help="roi_head.pt of det_train_two_stage (implies "
+                         "--two-stage)")
+    ap.add_argument("--dcn-head", action="store_true",
+                    help="DCNSepHead instead of SepHead")
+    ap.add_argument("--dense-from-level", type=int, default=None,
+                    help="backbone levels >= L on a masked dense grid")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"),
                     help="model compute dtype (the box decode stays f32)")
@@ -100,21 +117,6 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     return ap.parse_args(argv)
-
-
-def _unported(args) -> None:
-    """Raise on the options that wait for ROADMAP §1 item 6."""
-    if args.two_stage or args.two_stage_checkpoint:
-        raise NotImplementedError(f"--two-stage: the refinement {UNPORTED}")
-    if args.dense_from_level is not None:
-        raise NotImplementedError(
-            f"--dense-from-level: the hybrid dense backbone {UNPORTED}")
-    dcn = args.dcn_head or bool(
-        args.config and load_config(args.config).model.bbox_head.get(
-            "dcn_head", False))
-    if dcn:
-        raise NotImplementedError(f"--dcn-head / dcn_head: the DCN head "
-                                  f"{UNPORTED}")
 
 
 def make_dataset(args):
@@ -157,15 +159,34 @@ class DetTest:
         gen = None if state_dict is not None else \
             torch.Generator().manual_seed(0)
         cap = self.cap
+        self.two_stage = bool(args.two_stage or args.two_stage_checkpoint)
         self.model = VoxelNet(num_input_features=5, batch_size=self.n_batch,
                               grid_shape=GRID,
                               capacities=(cap, cap // 2, cap // 4, cap // 8),
-                              dtype=args.dtype, device=self.device,
-                              generator=gen)
+                              dtype=args.dtype,
+                              dcn_head=(args.dcn_head
+                                        or config_dcn_head(args.config)),
+                              return_bev=self.two_stage,
+                              dense_from_level=args.dense_from_level,
+                              device=self.device, generator=gen)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.model.eval()
         self.num_classes = [len(t) for t in self.model.tasks]
+        self.refine, self.refine_ms = None, []
+        if self.two_stage:
+            self.refine = TS.TwoStageRefinement(
+                bev_channels=BEV_CHANNELS,
+                pc_start=tuple(self.cfg["pc_range"][:2]),
+                voxel_size=tuple(self.cfg["voxel_size"][:2]),
+                out_stride=self.cfg["out_size_factor"], device=self.device,
+                generator=(None if args.two_stage_checkpoint
+                           else torch.Generator().manual_seed(1)))
+            if args.two_stage_checkpoint:
+                self.refine.load_state_dict(torch.load(
+                    args.two_stage_checkpoint, map_location="cpu",
+                    weights_only=True)["roi_head"], strict=True)
+            self.refine.eval()
 
     def batch(self, s):
         """Double flip: the group [orig, y-flip, x-flip, xy-flip] in one
@@ -181,24 +202,51 @@ class DetTest:
     def forward(self, batch):
         """Forward, decode (fused under double flip) and device NMS when
         asked for: per task (boxes, scores, labels, mask) of batch 1 on the
-        device."""
+        device; with --two-stage also the neck's (B, C, H, W) map."""
         with torch.inference_mode():
-            preds = self.model(*dp.det_inputs(batch, self.device))
+            out = self.model(*dp.det_inputs(batch, self.device))
+            preds, bev = out if self.two_stage else (out, None)
             outs = decode_boxes(preds, self.cfg, self.num_classes,
                                 double_flip=self.args.double_flip)
             if self.args.device_nms:
                 outs = device_nms(outs, self.cfg)
-            return outs
+            return (outs, bev) if self.two_stage else outs
 
-    def detections(self, rows):
+    def refine_proposals(self, bev, pb, ps):
+        """The second stage over the first N_ROI proposals (det3d layout),
+        padded with zero rows to N_ROI, on the original orientation's map
+        (batch row 0): (scores, boxes) of those proposals. Appends its
+        time, the copies included, to `refine_ms`."""
+        t0 = time.perf_counter()
+        k = min(len(pb), N_ROI)
+        rois = np.zeros((N_ROI, 9), np.float32)
+        scores = np.zeros(N_ROI, np.float32)
+        rois[:k] = TS.reorder_to_roi_layout(pb[:k])
+        scores[:k] = ps[:k]
+        with torch.inference_mode():
+            r = torch.from_numpy(rois).to(self.device)
+            sc = torch.from_numpy(scores).to(self.device)
+            # the neck emits (B, C, H, W); the refinement samples (H, W, C)
+            iou, reg = self.refine(bev[0].permute(1, 2, 0), r, sc)
+            s2 = TS.second_stage_score(iou, sc)
+            boxes = TS.generate_refined_boxes(r, reg)
+            s2, boxes = s2.cpu().numpy(), boxes.cpu().numpy()
+        self.refine_ms.append((time.perf_counter() - t0) * 1e3)
+        return s2[:k], TS.roi_layout_to_det3d(boxes)[:k]
+
+    def detections(self, rows, bev=None):
         """`masked_rows` after the host's rotated NMS per task (none with
-        device NMS, whose mask is the keep), the boxes rotated back under
-        --tt-rotation: (boxes, scores, labels)."""
+        device NMS, whose mask is the keep), refined by the second stage
+        under --two-stage (`bev` the forward's map), the boxes rotated back
+        under --tt-rotation: (boxes, scores, labels)."""
         det = host_nms(rows, self.cfg, self.args.device_nms)
-        pb = det["box3d_lidar"]
+        pb, ps, pl = det["box3d_lidar"], det["scores"], det["label_preds"]
+        if self.two_stage and len(pb):
+            ps, pb = self.refine_proposals(bev, pb, ps)
+            pl = pl[:len(pb)]
         if self.args.tt_rotation != 0.0:
             pb = rotate_predictions_back(pb, np.deg2rad(self.args.tt_rotation))
-        return pb, det["scores"], det["label_preds"]
+        return pb, ps, pl
 
     def record(self, s, index, pb, ps, pl):
         rec = {"token": s.get("token", str(index)), "pred_boxes": pb,
@@ -238,8 +286,8 @@ def _jsonable(rec):
 def evaluate(args) -> dict:
     """Run det_test for parsed `args`: {"samples": the frames' records,
     "ms_per_frame": each frame's latency, "metrics": `metrics_of` (None
-    without GT)}; writes --out and --save-vis."""
-    _unported(args)
+    without GT), and under --two-stage "refine_ms": the second stage's
+    time in each frame that had proposals}; writes --out and --save-vis."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to evaluate on "
@@ -255,9 +303,11 @@ def evaluate(args) -> dict:
         s = ds[i]
         b = run.batch(s)
         t0 = time.perf_counter()
-        rows = masked_rows(run.forward(b))          # waits for the device
+        outs, bev = run.forward(b) if run.two_stage else (run.forward(b),
+                                                          None)
+        rows = masked_rows(outs)                    # waits for the device
         latencies.append(time.perf_counter() - t0)
-        samples.append(run.record(s, i, *run.detections(rows)))
+        samples.append(run.record(s, i, *run.detections(rows, bev)))
         if (i + 1) % 50 == 0:
             print(f"[{i + 1}/{n}]", flush=True)
 
@@ -286,8 +336,11 @@ def evaluate(args) -> dict:
               f"{metrics['nds'] * 100:.2f}")
         for c, ap in metrics["class_aps"].items():
             print(f"  {c}: AP {ap * 100:.1f}")
-    return {"samples": samples,
-            "ms_per_frame": [t * 1e3 for t in latencies], "metrics": metrics}
+    out = {"samples": samples,
+           "ms_per_frame": [t * 1e3 for t in latencies], "metrics": metrics}
+    if run.two_stage:
+        out["refine_ms"] = run.refine_ms
+    return out
 
 
 def main(argv=None) -> int:

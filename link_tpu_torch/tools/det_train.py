@@ -21,10 +21,15 @@ Usage:
       [--no-aug-from 16] [--grid 1440 1440 40] \
       [--config configs/nusc/voxelnet/...elkv3.py] [--epochs N] \
       [--samples-per-device 2] [--voxel-capacity 163840] [--run-dir D] \
-      [--resume [auto|path]] [--stop-after-epoch N] [--device cpu]
+      [--resume [auto|path]] [--stop-after-epoch N] \
+      [--dense-from-level L] [--device cpu]
 
 As in the JAX tool, --config sets the recipe, its total_epochs included
-(over --epochs), and its `data.train_anno` (over --info-path). Unlike the
+(over --epochs), its `data.train_anno` (over --info-path) and, with
+`model.bbox_head.dcn_head`, the DCN head; --dense-from-level L runs the
+backbone's levels from L on on a masked dense grid. The multi-host flags
+(--coordinator, --num-processes, --process-id) raise NotImplementedError:
+data parallelism is not ported yet (ROADMAP §1 item 8). Unlike the
 JAX tool, a missing info pkl or GT database raises FileNotFoundError
 naming the path (JAX falls back to synthetic frames, or trains without
 GT-AUG).
@@ -42,6 +47,7 @@ from ..data import det_pipeline as dp
 from ..data.loader import PrefetchLoader, epoch_indices, shard_indices
 from ..data.gt_aug import DataBaseSampler
 from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
+from ..inference import config_dcn_head
 from ..models.voxelnet import VoxelNet
 from ..train import det_trainer as DT
 from ..train import schedules
@@ -82,7 +88,8 @@ def parse_args(argv=None):
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
-    ap.add_argument("--dense-from-level", type=int, default=None)
+    ap.add_argument("--dense-from-level", type=int, default=None,
+                    help="backbone levels >= L on a masked dense grid")
     ap.add_argument("--resume", nargs="?", const="auto", default=None,
                     help="checkpoint path, or bare/`auto` to continue from "
                          "the run dir's latest.pt if one exists")
@@ -97,10 +104,6 @@ def parse_args(argv=None):
 
 def _unported(args) -> None:
     """Raise on the parts that wait for other slices of the port."""
-    if args.dense_from_level is not None:
-        raise NotImplementedError(
-            "--dense-from-level: the hybrid dense backbone is not ported yet "
-            "(ROADMAP §1 item 6)")
     if (args.coordinator or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError(
@@ -115,10 +118,6 @@ def recipe(args) -> dict:
     rc = dict(RECIPE, epochs=args.epochs)
     if args.config:
         cfg = load_config(args.config)
-        if cfg.model.bbox_head.get("dcn_head", False):
-            raise NotImplementedError(
-                "dcn_head: the DCN head is not ported yet (ROADMAP §1 "
-                "item 6)")
         rc.update(lr_max=cfg.lr_config.lr_max, moms=tuple(cfg.lr_config.moms),
                   div_factor=cfg.lr_config.div_factor,
                   pct_start=cfg.lr_config.pct_start, wd=cfg.optimizer.wd,
@@ -166,7 +165,8 @@ def main(argv=None) -> int:
     model = VoxelNet(num_input_features=5, batch_size=spd, grid_shape=grid,
                      capacities=tuple(max(1024, cap // f)
                                       for f in (1, 2, 4, 8)),
-                     device=device,
+                     dcn_head=config_dcn_head(args.config),
+                     dense_from_level=args.dense_from_level, device=device,
                      generator=torch.Generator().manual_seed(0))
     steps_per_epoch = max(1, len(train_ds) // spd)
     total_steps = epochs * steps_per_epoch

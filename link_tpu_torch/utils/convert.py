@@ -12,7 +12,11 @@ families, the inverses of `translate_elkencoder`, `translate_minkunet` and
 `translate_spvcnn`; `from_jax_det_params` maps the JAX VoxelNet's, the
 inverse of
 `link_tpu/utils/torch_import_det.py:translate_voxelnet` (spconv weight
-layouts, Linear and Conv2d transposes, the ConvTranspose spatial flip).
+layouts, Linear and Conv2d transposes, the ConvTranspose spatial flip),
+and the DCN heads of a `dcn_head=True` model in the reference's keys;
+`from_jax_two_stage` maps the JAX TwoStageRefinement's onto the port's,
+whose RoI head keys are the reference's (a reference RoI head state_dict
+loads into `RoIHead` directly).
 `to_jax_flat` goes the other way for the ELKUNet: a port `state_dict`, or
 the gradients by parameter name, onto the flat names of the JAX trees, so
 gradients and updated parameters can be compared leaf by leaf.
@@ -315,11 +319,7 @@ def from_jax_det_params(params: Dict[str, Any],
     sd: Dict[str, torch.Tensor] = {}
 
     def bn(prefix, p, s):
-        sd[f"{prefix}.weight"] = _t(p["scale"])
-        sd[f"{prefix}.bias"] = _t(p["bias"])
-        sd[f"{prefix}.running_mean"] = _t(s["mean"])
-        sd[f"{prefix}.running_var"] = _t(s["var"])
-        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        _bn_entries(sd, prefix, p, s)
 
     P, S = params["backbone"], batch_stats["backbone"]
     B = "backbone"
@@ -383,20 +383,92 @@ def from_jax_det_params(params: Dict[str, Any],
         bn(f"neck.deblocks.{i}.1", P[name]["BatchNorm_0"],
            S[name]["BatchNorm_0"])
 
-    P, S = params["bbox_head"], batch_stats["bbox_head"]
-    H = "bbox_head"
-    sd[f"{H}.shared_conv.0.weight"] = _conv2d(P["shared_conv"]["kernel"])
-    sd[f"{H}.shared_conv.0.bias"] = _t(P["shared_conv"]["bias"])
-    bn(f"{H}.shared_conv.1", P["shared_bn"], S["shared_bn"])
+    head = from_jax_center_head(params["bbox_head"], batch_stats["bbox_head"])
+    sd.update({f"bbox_head.{k}": v for k, v in head.items()})
+    return sd
+
+
+def _bn_entries(sd, prefix, p, s):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(s["mean"])
+    sd[f"{prefix}.running_var"] = _t(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def from_jax_center_head(P: Dict[str, Any], S: Dict[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """flax CenterHead {params, batch_stats} -> the port's CenterHead
+    state_dict (SepHead tasks, or with `dcn_head=True` DCNSepHead tasks in
+    the reference's keys)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def branch(pre, p, s):
+        sd[f"{pre}.0.weight"] = _conv2d(p["conv0"]["kernel"])
+        sd[f"{pre}.0.bias"] = _t(p["conv0"]["bias"])
+        _bn_entries(sd, f"{pre}.1", p["bn0"], s["bn0"])
+        sd[f"{pre}.3.weight"] = _conv2d(p["final"]["kernel"])
+        sd[f"{pre}.3.bias"] = _t(p["final"]["bias"])
+
+    sd["shared_conv.0.weight"] = _conv2d(P["shared_conv"]["kernel"])
+    sd["shared_conv.0.bias"] = _t(P["shared_conv"]["bias"])
+    _bn_entries(sd, "shared_conv.1", P["shared_bn"], S["shared_bn"])
+    heads = ("reg", "height", "dim", "rot", "vel")
     t = 0
     while f"task{t}_hm" in P:
-        for head in ("reg", "height", "dim", "rot", "vel", "hm"):
+        for head in heads + ("hm",):
             name = f"task{t}_{head}"
-            pre = f"{H}.tasks.{t}.{head}"
-            sd[f"{pre}.0.weight"] = _conv2d(P[name]["conv0"]["kernel"])
-            sd[f"{pre}.0.bias"] = _t(P[name]["conv0"]["bias"])
-            bn(f"{pre}.1", P[name]["bn0"], S[name]["bn0"])
-            sd[f"{pre}.3.weight"] = _conv2d(P[name]["final"]["kernel"])
-            sd[f"{pre}.3.bias"] = _t(P[name]["final"]["bias"])
+            branch(f"tasks.{t}.{head}", P[name], S[name])
         t += 1
+    t = 0
+    while f"task{t}_dcn" in P:                 # dcn_head=True
+        p, s, pre = P[f"task{t}_dcn"], S[f"task{t}_dcn"], f"tasks.{t}"
+        for fa in ("feature_adapt_cls", "feature_adapt_reg"):
+            off = p[fa]["conv_offset"]
+            sd[f"{pre}.{fa}.conv_offset.weight"] = _conv2d(off["kernel"])
+            sd[f"{pre}.{fa}.conv_offset.bias"] = _t(off["bias"])
+            sd[f"{pre}.{fa}.conv_adaption.weight"] = _deform_weight(
+                p[fa]["deform_weight"])
+        for i, name in ((0, "cls0"), (3, "cls1")):
+            sd[f"{pre}.cls_head.{i}.weight"] = _conv2d(p[name]["kernel"])
+            sd[f"{pre}.cls_head.{i}.bias"] = _t(p[name]["bias"])
+        _bn_entries(sd, f"{pre}.cls_head.1", p["cls_bn"], s["cls_bn"])
+        for head in heads:
+            branch(f"{pre}.task_head.{head}", p[head], s[head])
+        t += 1
+    return sd
+
+
+def _deform_weight(kernel) -> torch.Tensor:
+    """The JAX DCN's (K, Ci, Co), taps row-major over (kh, kw) -> the
+    DeformConv's (Co, Ci, kh, kw)."""
+    k = np.asarray(kernel)
+    ks = int(round(k.shape[0] ** 0.5))
+    return _t(k.reshape(ks, ks, k.shape[1], k.shape[2]).transpose(3, 2, 0, 1))
+
+
+def from_jax_two_stage(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """flax TwoStageRefinement {params, batch_stats} -> the port's
+    `TwoStageRefinement` state_dict: the RoI head in the reference's keys
+    (`roi_head.shared_fc_layer.0.weight` (Co, Ci, 1), ...; the Linear
+    kernels (Ci, Co) transposed)."""
+    P, S = params["roi_head"], batch_stats["roi_head"]
+    sd: Dict[str, torch.Tensor] = {}
+    for ours, ref in (("shared", "shared_fc_layer"), ("cls_fc", "cls_layers"),
+                      ("reg_fc", "reg_layers")):
+        i = 0
+        while f"{ours}{i}" in P:
+            # [Conv1d, BN, ReLU] a layer, the Dropout after the first
+            conv = 3 * i + min(i, 1)
+            sd[f"roi_head.{ref}.{conv}.weight"] = _t(
+                np.asarray(P[f"{ours}{i}"]["kernel"]).T[:, :, None])
+            _bn_entries(sd, f"roi_head.{ref}.{conv + 1}", P[f"{ours}{i}_bn"],
+                        S[f"{ours}{i}_bn"])
+            i += 1
+        if ours != "shared":
+            final = P["cls" if ours == "cls_fc" else "reg"]
+            sd[f"roi_head.{ref}.{3 * i + 1}.weight"] = _t(
+                np.asarray(final["kernel"]).T[:, :, None])
+            sd[f"roi_head.{ref}.{3 * i + 1}.bias"] = _t(final["bias"])
     return sd

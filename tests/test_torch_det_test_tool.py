@@ -160,20 +160,6 @@ def test_det_test_rotates_predictions_back(tree, tiny):
     assert kept > 0
 
 
-@pytest.mark.parametrize("flags", [["--two-stage"],
-                                   ["--two-stage-checkpoint", "r.pkl"],
-                                   ["--dcn-head"],
-                                   ["--dense-from-level", "2"],
-                                   "dcn_config"])
-def test_det_test_refuses_the_unported_options(tmp_path, flags):
-    if flags == "dcn_config":
-        cfg = tmp_path / "dcn.py"
-        cfg.write_text("model = dict(bbox_head=dict(dcn_head=True))\n")
-        flags = ["--config", str(cfg)]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        det_test.main(["--synthetic", "--device", "cpu", *flags])
-
-
 def test_the_tools_raise_on_missing_files(tmp_path, tree):
     missing = str(tmp_path / "no_infos.pkl")
     with pytest.raises(FileNotFoundError, match="no_infos.pkl"):

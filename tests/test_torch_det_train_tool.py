@@ -70,10 +70,13 @@ def test_det_train_runs_and_resumes_the_one_cycle_position(tmp_path,
 @pytest.mark.parametrize("flags,item", [
     (["--synthetic", "--coordinator", "localhost:1234"], "item 8"),
     (["--synthetic", "--process-id", "0"], "item 8"),
-    (["--dense-from-level", "0"], "item 6"),
-    (["--synthetic", "--dense-from-level", "2"], "item 6"),
+    (["--num-processes", "4", "--process-id", "1"], "item 8"),
+    (["--synthetic", "--dense-from-level", "2", "--coordinator",
+      "localhost:1234"], "item 8"),
     (["--synthetic", "--num-processes", "2"], "item 8")])
 def test_det_train_raises_on_the_unported_parts(flags, item):
+    """Only the multi-host flags still raise (data parallelism, ROADMAP §1
+    item 8), whatever else is asked for."""
     with pytest.raises(NotImplementedError, match=item):
         det_train.main(flags + ["--device", "cpu"])
 
@@ -90,11 +93,47 @@ def test_det_train_takes_the_recipe_from_the_config():
                       pct_start=0.4, wd=0.01, clip=35.0, epochs=20)
 
 
-def test_det_train_raises_on_a_dcn_head_config(tmp_path):
-    """A config that asks for the DCN head, which is not ported yet, is
-    refused rather than trained without it."""
+def test_det_train_trains_a_dcn_head_config(tmp_path, tiny_frames):
+    """A config that asks for the DCN head (the published config with
+    bbox_head.dcn_head=True) trains a VoxelNet with a DCNSepHead per task:
+    one epoch (stopped, the config's schedule spans 20), its checkpoint
+    holds the DCN head's reference keys, every one of its parameters moved,
+    and the loss is finite."""
     cfg = tmp_path / "dcn.py"
-    cfg.write_text("model = dict(bbox_head=dict(dcn_head=True))\n")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        det_train.main(["--synthetic", "--device", "cpu", "--config",
-                        str(cfg)])
+    cfg.write_text(open(CONFIG).read()
+                   + "\nmodel['bbox_head']['dcn_head'] = True\n")
+    _run(tmp_path / "run", "--config", str(cfg), "--stop-after-epoch", "1")
+    ckpt = torch.load(tmp_path / "run" / "latest.pt", weights_only=True)
+    sd = ckpt["model"]
+    key = "bbox_head.tasks.0.feature_adapt_cls.conv_adaption.weight"
+    assert key in sd and not any(".hm." in k for k in sd)
+    init = det_train.VoxelNet(batch_size=2, grid_shape=(48, 48, 40),
+                              capacities=(8192, 4096, 2048, 1024),
+                              dcn_head=True, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    for k, v in init.state_dict().items():
+        if ".tasks." in k and not k.endswith("num_batches_tracked"):
+            assert not torch.equal(sd[k], v), k
+    logs = [json.loads(line) for line in
+            open(tmp_path / "run" / "metrics.jsonl").read().splitlines()]
+    assert [r["epoch"] for r in logs] == [1]
+    assert np.isfinite(logs[0]["loss/train"])
+
+
+def test_det_train_with_dense_from_level(tmp_path, tiny_frames):
+    """--dense-from-level 2 trains the hybrid backbone: one epoch, finite
+    loss, and the dense levels' weights moved."""
+    _run(tmp_path / "run", "--epochs", "1", "--dense-from-level", "2")
+    sd = torch.load(tmp_path / "run" / "latest.pt",
+                    weights_only=True)["model"]
+    init = det_train.VoxelNet(batch_size=2, grid_shape=(48, 48, 40),
+                              capacities=(8192, 4096, 2048, 1024),
+                              device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    for k in ("backbone.conv3.0.conv1.weight", "backbone.down4.0.weight",
+              "backbone.elk4.pre_mix.0.weight",
+              "backbone.extra_conv.0.weight"):
+        assert not torch.equal(sd[k], init.state_dict()[k]), k
+    logs = [json.loads(line) for line in
+            open(tmp_path / "run" / "metrics.jsonl").read().splitlines()]
+    assert np.isfinite(logs[0]["loss/train"]) and logs[0]["step"] == 4
