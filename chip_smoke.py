@@ -254,6 +254,37 @@ Phases, in order (any failure raises and the script exits non-zero):
                  rotated_nms 3 times a frame with --device-nms and never
                  without, and every tool run unless it went through the
                  join and conv kernels (with gather_wgrad in det_train);
+ 14l. waymo     Waymo through the registry at the full Waymo grid (1504 x
+                 1504 x 40, 0.1 x 0.1 x 0.15 m): trees of made frames
+                 (`data/waymo.write_synthetic_tree`, 180,000 points a
+                 frame, 2 sequences of 3 frames a split) prepared by
+                 `create_data_waymo` as a user runs it (infos with 1 and 2
+                 sweeps, gt-db); `WaymoDataset` by `build_from_cfg` and
+                 the three-task VoxelNet by `build_detector` at capacities
+                 (204,800, 163,840, 65,536, 32,768), every level's rows
+                 counted on each frame and none overflowing; in float32
+                 with TF32 off, one val frame's forward and decode card
+                 against CPU (< 1e-5), every kernel call of that frame
+                 against its twin at its shapes, host vs device NMS on its
+                 decode outputs (the det_serve rule) and `rotated_nms`
+                 against its twin on each task's top 1,000 candidates (the
+                 frame's call, S = 3 at N = 4,096, timed beside its bound);
+                 then under a user's TF32 flags bf16 forward + decode +
+                 device NMS over the 6 val frames (launches per frame,
+                 ms per frame, profile, peak memory), `evaluate_waymo`
+                 (finite L1 / L2 mAP and mAPH), `write_waymo_submission`
+                 and `waymo_track` (every frame tracked); 3 f32 training
+                 steps on `WaymoDataset(mode="train")` with the GT-AUG
+                 sampler (loss finite, ms per step), the last step's
+                 kernel calls (`gather_wgrad` and the backward's convs
+                 among them) against their twins; tools' output in
+                 chiprun_out/waymo.log;
+ 14m. tracking_tools `det_test --device-nms --out` on det_files' val tree,
+                 its records as a submission (`write_submission`), then
+                 `nusc_track --info` (every frame tracked); `profile_fwd
+                 --det --iters 1` in a fresh process (its torch.profiler
+                 trace read back by kernel, the kernels launched; log in
+                 chiprun_out/profile_fwd.log);
  15. path_shapes `gather_conv` and `gather_wgrad` against their twins,
                  bit-equal over two runs, at every distinct shape and dtype
                  of one more seg pass, det pass, seg training step and det
@@ -4325,6 +4356,545 @@ def phase_det_two_stage(res, ctx):
 
 
 # --------------------------------------------------------------------------
+# Waymo on the card through the registry; the tracking and profiling tools
+
+WAYMO_TREE = {"train": (3, 2, 0), "val": (3, 2, 100)}  # frames a sequence,
+# sequences, seed
+WAYMO_POINTS = 180000        # a decoded Waymo frame's points
+WAYMO_GRID = (1504, 1504, 40)
+# level 0 takes val's 200,000 voxels; levels 1-3 the most rows a frame of
+# the written trees needs (logged; 1 or 2 sweeps), with room
+WAYMO_CAPACITIES = (204800, 163840, 65536, 32768)
+WAYMO_DET_CFG = dict(type="VoxelNet", num_input_features=5,
+                     grid_shape=WAYMO_GRID, capacities=WAYMO_CAPACITIES)
+# the reference's Waymo test_cfg (waymo_centerpoint_voxelnet_3x.py): the
+# centre limit +-80 m covers the +-75.2 m grid
+WAYMO_TEST_CFG = dict(
+    post_center_limit_range=[-80.0, -80.0, -10.0, 80.0, 80.0, 10.0],
+    max_per_img=4096, nms_pre_max_size=4096, nms_post_max_size=500,
+    nms_iou_threshold=0.7, score_threshold=0.1, pc_range=[-75.2, -75.2],
+    voxel_size=[0.1, 0.1], out_size_factor=8)
+# the reference Waymo config's GT-AUG groups, 5 points at least each
+WAYMO_SAMPLE_GROUPS = {"VEHICLE": 15, "PEDESTRIAN": 10, "CYCLIST": 10}
+WAYMO_TRAIN_STEPS = 3
+WAYMO_NMS_SET = 1000         # rotated_nms against its twin on each task's
+# top 1,000 (the twin's all-pairs IoU held ~2.5 KB a pair in a CPU run: the
+# call's 4,096 would need some 42 GB a set)
+WAYMO_LOG = os.path.join(HERE, "chiprun_out", "waymo.log")
+
+
+def _waymo_tree(ctx):
+    """The Waymo-format trees (WAYMO_TREE, WAYMO_POINTS a frame) in a
+    temporary directory, removed at exit, prepared by
+    `create_data_waymo` as a user runs it: infos of each split with 1 and
+    2 sweeps, the train split's GT database. Returns {split: 1-sweep info
+    pkl}."""
+    if "waymo_infos" not in ctx:
+        import atexit
+        import shutil
+        import tempfile
+        from link_tpu_torch.data.waymo import write_synthetic_tree
+        from link_tpu_torch.tools import create_data_waymo
+        root = tempfile.mkdtemp(prefix="waymo_")
+        atexit.register(shutil.rmtree, root, True)
+        t0 = time.perf_counter()
+        for split, (n, seqs, seed) in WAYMO_TREE.items():
+            write_synthetic_tree(root, n, WAYMO_POINTS, seed=seed,
+                                 split=split, sequences=seqs)
+        t1 = time.perf_counter()
+        for split in WAYMO_TREE:
+            for ns in (1, 2):
+                create_data_waymo.main(["infos", "--root", root, "--split",
+                                        split, "--nsweeps", str(ns)])
+        create_data_waymo.main(["gt-db", "--root", root])
+        ctx["waymo_root"] = root
+        ctx["waymo_infos"] = {
+            s: os.path.join(root, f"infos_{s}_01sweeps.pkl")
+            for s in WAYMO_TREE}
+        ctx["waymo_tree_s"] = {"write": t1 - t0,
+                               "infos_gt_db": time.perf_counter() - t1}
+    return ctx["waymo_infos"]
+
+
+def _waymo_levels(samples, grid=WAYMO_GRID):
+    """The det level rows (`_det_level_rows`: voxels, then each strided
+    conv's output set) of each Waymo sample, and the most per level."""
+    rows = [_det_level_rows(s["coords_zyx"],
+                            grid=(grid[0], grid[1], grid[2] + 1))
+            for s in samples]
+    return rows, [max(r[lv] for r in rows) for lv in range(4)]
+
+
+def _waymo_hold(res, model, batch, cfg, kernels):
+    """The f32 forward and decode of one val frame, TF32 off, on the card
+    (every kernel call recorded) against the CPU (plain twins), same
+    weights: every head map within DET_GOLDEN_REL_TOL; decoded scores
+    too, boxes but the yaw likewise, the yaw modulo 2 pi; masks equal but
+    for scores within 1e-5 of the threshold. Returns (the recorder, the
+    card's decode outputs)."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.models.center_head import decode_boxes
+    ncls = [len(t) for t in model.tasks]
+    cpu = builder.build_detector(dict(WAYMO_DET_CFG, tasks=model.tasks),
+                                 device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    with torch.inference_mode():
+        with ShapeRecorder() as rec:
+            got = model(*dp.det_inputs(batch, "cuda"))
+        outs = decode_boxes(got, cfg, ncls)
+        t_card = time.perf_counter()
+        want = cpu(*dp.det_inputs(batch, "cpu"))
+        outs_cpu = decode_boxes(want, cfg, ncls)
+    t_cpu = time.perf_counter() - t_card
+    errs = {}
+    for t, (a, b) in enumerate(zip(got, want)):
+        for key in b:
+            errs[f"task {t} {key}"] = rel_err(a[key].cpu(), b[key])
+    flips = 0
+    thr = cfg["score_threshold"]
+    for t, (a, b) in enumerate(zip(outs, outs_cpu)):
+        (ba, sa, la, ma), (bb, sb, lb, mb) = [
+            tuple(x.float().cpu() if x.dtype != torch.bool else x.cpu()
+                  for x in o) for o in (a, b)]
+        errs[f"task {t} decoded scores"] = rel_err(sa, sb)
+        errs[f"task {t} decoded boxes"] = rel_err(ba[..., :8], bb[..., :8])
+        dyaw = torch.remainder(ba[..., 8] - bb[..., 8] + math.pi,
+                               2 * math.pi) - math.pi
+        errs[f"task {t} decoded yaw"] = float(dyaw.abs().max())
+        if not torch.equal(la, lb):
+            raise AssertionError(f"waymo hold task {t}: labels differ")
+        diff = ma != mb
+        flips += int(diff.sum())
+        if bool((diff & ((sb - thr).abs() >= 1e-5)).any()):
+            raise AssertionError(f"waymo hold task {t}: a mask differs away "
+                                 "from the score threshold")
+    worst = max(errs, key=errs.get)
+    res["waymo_hold"] = {"errs": errs, "worst": worst,
+                         "worst_rel_err": errs[worst], "mask_flips": flips,
+                         "cpu_s": t_cpu}
+    log(f"waymo hold: f32 forward + decode, card vs CPU, {len(errs)} "
+        f"readings, worst {errs[worst]:.3g} ({worst}; tol "
+        f"{DET_GOLDEN_REL_TOL}), mask flips at the threshold {flips}; the "
+        f"CPU forward {t_cpu:.1f} s")
+    if not errs[worst] < DET_GOLDEN_REL_TOL:
+        raise AssertionError(f"waymo hold: {worst} rel err {errs[worst]}")
+    del cpu, want, outs_cpu
+    return rec, outs
+
+
+def _waymo_shapes(rec, kernels, role, iters=5):
+    """Every kernel call a recorder kept, held against its twin and timed
+    beside its bound: each distinct `gather_conv`, `window_conv` and
+    `gather_wgrad` shape, each `sorted_join` call."""
+    import torch
+    from link_tpu_torch.sparse.coords import CoordTable
+    torch.cuda.synchronize()
+    out = {"conv": [], "window": [], "wgrad": [], "join": []}
+    for key, (feats, idx, weight) in rec.conv.items():
+        case = _conv_case(kernels, feats, idx, weight, iters, role=role)
+        case["launches"] = rec.conv_calls[key]
+        out["conv"].append(case)
+    for feats, plan, weight in rec.window.values():
+        out["window"].append(dict(_window_case(kernels, feats, plan, weight,
+                                               iters), role=role))
+    for key, (feats, g, bwd, work) in rec.wgrad.items():
+        case = _wgrad_case(kernels, feats, g, bwd, iters, work, role=role)
+        case["launches"] = rec.wgrad_calls[key]
+        out["wgrad"].append(case)
+    for i, (hi, lo, perm, base, offs, mult, mode) in enumerate(rec.joins):
+        out["join"].append(_join_case(kernels, CoordTable(hi, lo, perm),
+                                      base, offs, mode, iters, mult=mult,
+                                      role=f"{role} join {i}"))
+    log(f"{role} shapes: " + ", ".join(
+        f"{k} {len(v)} (kernel {sum(c['ms'] for c in v):.3f} / bound "
+        f"{sum(c['bound_ms'] for c in v):.3f} ms)" for k, v in out.items()))
+    return out
+
+
+def _waymo_nms(res, outs, cfg, kernels):
+    """Host (native) and device NMS on the same decode outputs keep the
+    same boxes but for pairs within NEAR_THRESH of the threshold (the
+    det_serve rule); `rotated_nms` against its twin (`_nms_case`) on each
+    task's top WAYMO_NMS_SET candidates and as one batched call of the
+    three; the frame's call at the path's shape (S = 3, N =
+    nms_pre_max_size) timed beside its bound."""
+    import torch
+    from link_tpu_torch import native
+    from link_tpu_torch.inference import host_nms, masked_rows
+    from link_tpu_torch.models.center_head import device_nms, nms_candidates
+    from link_tpu_torch.ops import nms
+    th, post = cfg["nms_iou_threshold"], cfg["nms_post_max_size"]
+    host = host_nms(masked_rows(outs), cfg)
+    dev = host_nms(masked_rows(device_nms(outs, cfg)), cfg, device_nms=True)
+    same = all(np.array_equal(host[k], dev[k]) for k in host)
+    cands = nms_candidates(outs, cfg)
+    near = 0 if same else _near_pairs(kernels, cands, th)
+    if not same and near == 0:
+        raise AssertionError("waymo: host and device NMS keep different "
+                             "boxes, and no pair lies near the threshold")
+    bev = torch.cat([bx[:, :, [0, 1, 3, 4, 8]] for bx, *_ in cands])
+    sc = torch.cat([c[1] for c in cands])
+    vm = torch.cat([c[3] for c in cands])
+    cases, singles = [], []
+    n = WAYMO_NMS_SET
+    top = [x[:, :n].contiguous() for x in (bev, sc, vm)]
+    for t in range(len(cands)):
+        case, keep = _nms_case(kernels, nms, native, *(x[t] for x in top),
+                               th, post, f"waymo task {t}")
+        cases.append(case)
+        singles.append(keep)
+    batch = _nms_batch(kernels, *top, th, post, singles,
+                       f"waymo, its {len(cands)} tasks")
+    shape = f"S={sc.shape[0]} N={sc.shape[1]} thresh={th} max_keep={post}"
+    bound, by, pairs, clips = _nms_bound(bev, vm)
+    frame = {"shape": shape, "ms": cuda_ms(
+        lambda: kernels.rotated_nms(bev, sc, vm, th, post), 20,
+        f"rotated_nms {shape}"), "plain_ms": None, "bound_ms": bound,
+        "bound_by": by, "valid_pairs": pairs, "clipped_pairs": clips,
+        "library_ms": None}
+    res["waymo_nms"] = {"host_vs_device_equal": same, "near_pairs": near,
+                        "kept_host": len(host["scores"]),
+                        "kept_device": len(dev["scores"]), "cases": cases,
+                        "batch": batch, "frame_call": frame}
+    log(f"waymo NMS: host vs device on the same decode outputs equal "
+        f"{same} (kept {len(host['scores'])} / {len(dev['scores'])}, pairs "
+        f"near the threshold {near}); rotated_nms vs its twin on each "
+        f"task's top {n}: keep differences "
+        f"{[c['keep_diff'] for c in cases]}, kept {[c['kept'] for c in cases]}"
+        f"; the frame's call {shape}: {frame['ms']:.4f} ms (twin not "
+        f"measured at this N), bound {bound:.6f} ms ({by}: {pairs} valid "
+        f"pairs, {clips} clipped)")
+
+
+def phase_waymo(res, ctx, rounds=2):
+    """Waymo end to end on the card, at the full Waymo grid (1504 x 1504 x
+    40, 0.1 x 0.1 x 0.15 m) through the registry: Waymo-format trees of
+    made frames (`write_synthetic_tree`, WAYMO_POINTS a frame, 2 sequences
+    of 3 frames a split) prepared by `create_data_waymo` (infos with 1 and
+    2 sweeps, the GT database); `WaymoDataset` by `build_from_cfg` and the
+    three-task VoxelNet by `build_detector` at WAYMO_CAPACITIES (every
+    level's rows counted on each frame, none overflowing); in float32 with
+    TF32 off, one val frame's forward and decode card against CPU
+    (`_waymo_hold`), every kernel call of that frame against its twin at
+    its shapes, host vs device NMS on its decode outputs and
+    `rotated_nms` against its twin (`_waymo_nms`). Then, under a user's
+    TF32 flags: bf16 forward + decode + device NMS over the val frames
+    (launches per frame around one pass, ms per frame, a profile, peak
+    memory), `evaluate_waymo` on them (L1 / L2 mAP and mAPH finite),
+    `write_waymo_submission` and `waymo_track` on the detections; and
+    WAYMO_TRAIN_STEPS f32 det training steps on `WaymoDataset(mode=
+    "train")` with the GT-AUG sampler (loss finite, ms per step), the last
+    step's kernel calls held against their twins. Tool output in
+    chiprun_out/waymo.log."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.data.waymo import WAYMO_TASKS
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.utils import registry as R
+
+    os.makedirs(os.path.dirname(WAYMO_LOG), exist_ok=True)
+    with open(WAYMO_LOG, "w") as logf, contextlib.redirect_stdout(logf):
+        infos = _waymo_tree(ctx)
+    root = ctx["waymo_root"]
+    builder.register_det_builtins()
+    val = R.build_from_cfg({"type": "WaymoDataset", "info_path":
+                            infos["val"], "root_path": root, "mode": "val"},
+                           R.DATASETS)
+    val2 = R.build_from_cfg({"type": "WaymoDataset", "info_path":
+                             infos["val"].replace("_01sweeps", "_02sweeps"),
+                             "root_path": root, "mode": "val", "nsweeps": 2},
+                            R.DATASETS)
+    t0 = time.perf_counter()
+    samples = [val[i] for i in range(len(val))]
+    read_s = (time.perf_counter() - t0) / len(val)
+    rows, most = _waymo_levels(samples)
+    rows2, most2 = _waymo_levels([val2[i] for i in range(len(val2))])
+    cap0 = WAYMO_CAPACITIES[0]
+    out = {"tree_s": ctx["waymo_tree_s"], "read_ms_per_frame": read_s * 1e3,
+           "points_per_frame": WAYMO_POINTS, "level_rows": rows,
+           "level_rows_2sweeps": rows2, "capacities": WAYMO_CAPACITIES}
+    log(f"waymo: {len(val)} val frames of {WAYMO_POINTS} points, written in "
+        f"{ctx['waymo_tree_s']['write']:.1f} s, infos and GT database "
+        f"{ctx['waymo_tree_s']['infos_gt_db']:.1f} s, read "
+        f"{read_s * 1e3:.0f} ms a frame; rows at levels 0-3 per frame {rows} "
+        f"(2 sweeps: {rows2}) against capacities {WAYMO_CAPACITIES}")
+    if any(m > c for m, c in zip(most + most2, WAYMO_CAPACITIES * 2)):
+        raise AssertionError(f"waymo: a level overflows: {most} / {most2} "
+                             f"rows against {WAYMO_CAPACITIES}")
+    batches = [dp.collate_det([s], cap0, max_points=5) for s in samples]
+    cfg = dict(WAYMO_TEST_CFG)
+    gen = torch.Generator().manual_seed(0)
+    model = builder.build_detector(dict(WAYMO_DET_CFG, tasks=WAYMO_TASKS),
+                                   device="cuda", generator=gen).eval()
+
+    rec, outs = _waymo_hold(res, model, batches[0], cfg, kernels)
+    out["frame_shapes"] = _waymo_shapes(rec, kernels, "waymo frame f32")
+    del rec
+    _waymo_nms(res, outs, cfg, kernels)
+    del outs, model
+    torch.cuda.empty_cache()
+    with user_tf32():
+        _waymo_tf32(res, ctx, out, samples, batches, cfg, rounds)
+    res["waymo"] = out
+
+
+def _waymo_tf32(res, ctx, out, samples, batches, cfg, rounds):
+    import pickle
+    import tempfile
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.data.gt_aug import DataBaseSampler
+    from link_tpu_torch.data.waymo import WAYMO_TASKS
+    from link_tpu_torch.eval import waymo_eval
+    from link_tpu_torch.inference import host_nms, masked_rows
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.models.center_head import decode_boxes, device_nms
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
+    from link_tpu_torch.tools import waymo_track
+    from link_tpu_torch.train import det_trainer as DT
+    from link_tpu_torch.train import schedules
+    from link_tpu_torch.utils import registry as R
+
+    root, infos = ctx["waymo_root"], ctx["waymo_infos"]
+    model = builder.build_detector(
+        dict(WAYMO_DET_CFG, tasks=WAYMO_TASKS, dtype="bfloat16"),
+        device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    ncls = [len(t) for t in model.tasks]
+    inputs = [dp.det_inputs(b, "cuda") for b in batches]
+
+    def frame(x):
+        with torch.inference_mode():
+            return device_nms(decode_boxes(model(*x), cfg, ncls), cfg)
+
+    n = len(inputs)
+    masked_rows(frame(inputs[0]))                       # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    dets = [host_nms(masked_rows(frame(x)), cfg, device_nms=True)
+            for x in inputs]
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in inputs:
+            masked_rows(frame(x))
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+    prof = _profile(lambda: [masked_rows(frame(x)) for x in inputs], n,
+                    min(times), "frame", ranges=(JOIN_RANGE,))
+    out["bf16"] = {"ms_per_frame": times, "frames_per_s": 1e3 / min(times),
+                   "peak_mem_gb": peak,
+                   "launches_per_frame": {k: v / n for k, v in
+                                          launches.items() if v},
+                   "profile": prof}
+    log(f"waymo bf16 forward + decode + device NMS, {n} frames: ms per "
+        f"frame per round {[round(t, 2) for t in times]} "
+        f"({1e3 / min(times):.2f} frames/s), launches per frame "
+        f"{out['bf16']['launches_per_frame']}, peak memory {peak:.2f} GB")
+    if (launches["rotated_nms"] != n * kernels.ROTATED_NMS_LAUNCHES
+            or min(launches[k] for k in ("sorted_join", "window_conv",
+                                         "gather_conv")) == 0):
+        raise AssertionError(f"waymo bf16 pass: launches {launches}")
+    del model, inputs
+    torch.cuda.empty_cache()
+
+    records = []
+    for s, d in zip(samples, dets):
+        records.append({"token": s["token"], "pred_boxes": d["box3d_lidar"],
+                        "pred_scores": d["scores"],
+                        "pred_labels": d["label_preds"],
+                        "gt_boxes": s["gt_boxes"],
+                        "gt_classes": s["gt_classes"],
+                        "gt_num_pts": s["gt_num_pts"]})
+    metrics = waymo_eval.evaluate_waymo(records)
+    work = tempfile.mkdtemp(prefix="waymo_out_")
+    with open(WAYMO_LOG, "a") as logf, contextlib.redirect_stdout(logf):
+        sub = waymo_eval.write_waymo_submission(records, os.path.join(
+            work, "detection_pred.bin"))
+        det_path = os.path.join(work, "detections.pkl")
+        with open(det_path, "wb") as f:
+            pickle.dump({r["token"]: {"box3d_lidar": r["pred_boxes"],
+                                      "label_preds": r["pred_labels"],
+                                      "scores": r["pred_scores"]}
+                         for r in records}, f)
+        waymo_track.main(["--detections", det_path, "--info", infos["val"],
+                          "--work-dir", work])
+    with open(os.path.join(work, "tracking_result.pkl"), "rb") as f:
+        tracked = pickle.load(f)
+    with open(sub) as f:
+        entries = len(json.load(f))
+    out["eval"] = {k: metrics[k] for k in ("map_l1", "map_l2", "maph_l1",
+                                           "maph_l2")}
+    out["kept"] = [len(r["pred_scores"]) for r in records]
+    out["submission_entries"] = entries
+    out["tracked_frames"] = len(tracked)
+    log(f"waymo eval of the seed-0 detections: {out['eval']}, kept per "
+        f"frame {out['kept']}; submission {os.path.basename(sub)} with "
+        f"{entries} entries; waymo_track: {len(tracked)} frames tracked")
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    if (not all(np.isfinite(v) for v in out["eval"].values())
+            or len(tracked) != len(records)
+            or entries != sum(out["kept"])):
+        raise AssertionError(f"waymo eval / tracking: {out}")
+
+    # training: WaymoDataset(mode="train") with the GT-AUG sampler
+    sampler = DataBaseSampler(
+        os.path.join(root, "dbinfos_train.pkl"), root,
+        sample_groups=WAYMO_SAMPLE_GROUPS,
+        min_points={k: 5 for k in WAYMO_SAMPLE_GROUPS})
+    train = R.build_from_cfg({"type": "WaymoDataset", "info_path":
+                              infos["train"], "root_path": root,
+                              "mode": "train", "db_sampler": sampler},
+                             R.DATASETS)
+    cap0 = WAYMO_CAPACITIES[0]
+    tmodel = builder.build_detector(
+        dict(WAYMO_DET_CFG, tasks=WAYMO_TASKS), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    lr_fn, mom_fn = schedules.one_cycle(1e-3, WAYMO_TRAIN_STEPS)
+    opt = DT.make_one_cycle_adam(tmodel, lr_fn, mom_fn)
+    steps, step_ms, losses = [], [], []
+    t0 = time.perf_counter()
+    for i in range(WAYMO_TRAIN_STEPS):
+        s = train[i % len(train)]
+        steps.append((dp.collate_det([s], cap0, max_points=5),
+                      _det_level_rows(s["coords_zyx"], grid=(
+                          WAYMO_GRID[0], WAYMO_GRID[1], WAYMO_GRID[2] + 1))))
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for i, (b, _) in enumerate(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == len(steps) - 1:
+            with ShapeRecorder() as rec:
+                m = DT.det_train_step(tmodel, opt, b)
+        else:
+            m = DT.det_train_step(tmodel, opt, b)
+        losses.append(float(m["loss"]))              # waits for the device
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_launches = _launch_counts()
+    tpeak = torch.cuda.max_memory_allocated() / 2**30
+    out["train"] = {"ms_per_step": step_ms, "losses": losses,
+                    "data_s_per_step": data_s / len(steps),
+                    "level_rows": [r for _, r in steps],
+                    "peak_mem_gb": tpeak,
+                    "launches_per_step": {k: v / len(steps) for k, v in
+                                          train_launches.items() if v}}
+    log(f"waymo train, {len(steps)} f32 steps of one frame (GT-AUG on): ms "
+        f"per step {[round(t, 1) for t in step_ms]} (the last under the "
+        f"shape recorder), losses {[round(x, 4) for x in losses]}, data "
+        f"{data_s / len(steps):.2f} s a step on the host, level rows "
+        f"{out['train']['level_rows']}, launches per step "
+        f"{out['train']['launches_per_step']}, peak {tpeak:.2f} GB")
+    if (not np.isfinite(losses).all() or any(
+            r > c for _, rr in steps for r, c in zip(rr, WAYMO_CAPACITIES))
+            or min(train_launches[k] for k in TRAIN_KERNELS) == 0):
+        raise AssertionError(f"waymo train: {out['train']}")
+    out["train_shapes"] = _waymo_shapes(rec, kernels, "waymo train step f32")
+    del rec, tmodel, opt, steps
+    torch.cuda.empty_cache()
+    res["waymo_launches"] = dict(launches)
+    _add_launches(res["waymo_launches"], train_launches)
+
+
+TRACK_TIMEOUT = 300
+
+
+def phase_tracking_tools(res, ctx):
+    """The tracking and profiling tools on the card: `det_test
+    --device-nms --out` (seed-0 weights, whose frames keep boxes) on
+    det_files' nuScenes-format val tree, its records written as a
+    submission (`eval/submission.write_submission`, boxes in the global
+    frame through the infos), then `nusc_track --info` on it (every frame
+    tracked, tracks carried across frames); and `profile_fwd --det --iters
+    1` in a fresh process (its profiler path on the card: the hand
+    kernels in its by-kernel table, each launched). Output in
+    chiprun_out/tracking_tools.log and chiprun_out/profile_fwd.log."""
+    import pickle
+    import shutil
+    import tempfile
+    from link_tpu_torch.eval.submission import write_submission
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import det_test, nusc_track
+
+    infos = _nus_tree(ctx)
+    work = tempfile.mkdtemp(prefix="tracking_")
+    out = {}
+    log_path = os.path.join(HERE, "chiprun_out", "tracking_tools.log")
+    try:
+        with open(log_path, "w") as logf, contextlib.redirect_stdout(logf), \
+                user_tf32():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            dets = os.path.join(work, "dets.json")
+            r = det_test.evaluate(det_test.parse_args(
+                ["--info-path", infos["val"], "--root-path", ctx["nus_root"],
+                 "--device-nms", "--out", dets]))
+            launches = _launch_counts()
+            out["det_test_s"] = time.perf_counter() - t0
+            with open(dets) as f:
+                records = json.load(f)
+            with open(infos["val"], "rb") as f:
+                by_token = {i["token"]: i for i in pickle.load(f)}
+            sub = write_submission(records, os.path.join(work, "sub.json"),
+                                   infos=by_token)
+            t0 = time.perf_counter()
+            nusc_track.main(["--detections", sub, "--work-dir", work,
+                             "--info", infos["val"]])
+            out["nusc_track_s"] = time.perf_counter() - t0
+        with open(os.path.join(work, "tracking_result.json")) as f:
+            tracked = json.load(f)["results"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ids = [a["tracking_id"] for v in tracked.values() for a in v]
+    out.update(frames=len(r["samples"]), tracked_frames=len(tracked),
+               tracks=len(set(ids)), tracked_boxes=len(ids),
+               kept=[len(s["pred_scores"]) for s in r["samples"]])
+    log(f"tracking tools: det_test --device-nms --out on the val tree "
+        f"({out['det_test_s']:.1f} s, kept {out['kept']}), nusc_track "
+        f"--info: {out['tracked_frames']} of {out['frames']} frames, "
+        f"{out['tracked_boxes']} tracked boxes in {out['tracks']} tracks "
+        f"({out['nusc_track_s']:.2f} s)")
+    if (out["tracked_frames"] != out["frames"] or not ids
+            or len(set(ids)) >= len(ids)):
+        raise AssertionError(f"nusc_track: {out}")
+
+    trace_dir = tempfile.mkdtemp(prefix="profile_fwd_")
+    try:
+        s, path, cli_launches = _cli(
+            "link_tpu_torch.tools.profile_fwd",
+            ["--det", "--iters", "1", "--top", "15", "--trace-dir",
+             trace_dir], "profile_fwd", TRACK_TIMEOUT)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    text = open(path + ".log").read()
+    kernel_table = text.split("== by kernel", 1)[-1]
+    out["profile_fwd"] = {"s": s, "launches": cli_launches,
+                          "device_timed": "total device time" in text}
+    log(f"profile_fwd --det --iters 1: {s:.1f} s, device trace read "
+        f"{out['profile_fwd']['device_timed']}, launches "
+        f"{ {k: v for k, v in cli_launches.items() if v} }")
+    if (not out["profile_fwd"]["device_timed"]
+            or "gather_conv_kernel" not in kernel_table
+            or min(cli_launches[k] for k in ("sorted_join", "window_conv",
+                                             "gather_conv")) == 0):
+        raise AssertionError(f"profile_fwd: {out['profile_fwd']}, "
+                             f"{text[-2000:]}")
+    res["tracking_tools"] = out
+    _add_launches(launches, cli_launches)
+    res["tracking_tools_launches"] = launches
+
+
+# --------------------------------------------------------------------------
 # the conv kernels at every shape of the main paths
 
 
@@ -4745,6 +5315,8 @@ MAIN_PATHS = {"seg": "launches",
               "det_dense": "det_dense_launches",
               "det_dcn": "det_dcn_launches",
               "det_two_stage": "det_two_stage_launches",
+              "waymo": "waymo_launches",
+              "tracking_tools": "tracking_tools_launches",
               "train": "train_launches", "det_train": "det_train_launches",
               "probes": "probe_launches"}
 
@@ -4759,7 +5331,9 @@ def kernels_line(res):
     the dense-2 and of the dense-1 backbone over the 2 det frames with the
     dense det_test and det_train runs, one DCN pass of them with device
     NMS with the DCN det_test and det_train runs, det_train_two_stage and
-    the four `det_test --two-stage` runs, one train step, one training
+    the four `det_test --two-stage` runs, one bf16 pass of the Waymo val
+    frames with device NMS and the Waymo training steps, the tracking
+    tools' det_test run and profile_fwd, one train step, one training
     step of each other seg family, one det train step, one run of the
     probe tool), and the error, times and bound of `KERNEL_CASE`. A kernel
     without a case or without a launch on any main path fails the
@@ -4822,7 +5396,8 @@ def main() -> int:
                   phase_det_train_main,
                   phase_det_train_profile, phase_det_train_cli,
                   phase_det_files, phase_det_dense, phase_det_dcn,
-                  phase_det_two_stage, phase_path_shapes, phase_probes):
+                  phase_det_two_stage, phase_waymo, phase_tracking_tools,
+                  phase_path_shapes, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

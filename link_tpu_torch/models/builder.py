@@ -1,20 +1,33 @@
-"""Name-dispatched factories for the seg stack: model, optimizer and lr
-schedule from a config (counterpart of `link_tpu/models/builder.py:46-109,
-156-167`; reference: segmentation/core/builder.py:16-124)."""
+"""Name-dispatched factories for the seg stack (model, optimizer and lr
+schedule from a config; reference: segmentation/core/builder.py:16-124)
+and the registry-driven detection builders (reference:
+detection/det3d/models/builder.py + registry.py). Counterpart of
+`link_tpu/models/builder.py`."""
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from ..data.semantic_kitti import SemanticKITTI, SyntheticSemanticKITTI
 from ..train import schedules
 from ..train.trainer import make_sgd
+from ..utils import registry as R
 from .linkencoder import ELKEncoder
 from .linkunet import DEFAULT_CAPACITIES, ELKUNet
 from .minkunet import MinkUNet
 from .spvcnn import SPVCNN
+
+# seg models are registered too (the reference's torchpack builder is
+# name-dispatched; the registry is the unified extension point here)
+SEG_MODELS = R.Registry("seg_model")
+for _cls in (ELKUNet, ELKEncoder, MinkUNet, SPVCNN):
+    SEG_MODELS.register_module(_cls)
+R.DATASETS.register_module(SemanticKITTI)
+R.DATASETS.register_module(SyntheticSemanticKITTI)
 
 
 def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
@@ -55,7 +68,63 @@ def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
                       dropout_rate=m.get("dropout_rate", 0.3),
                       dropout_seed=(None if generator is None
                                     else generator.initial_seed()), **kw)
+    # extensibility: user models registered via SEG_MODELS.register_module
+    # (the port's models also take the device)
+    if name in SEG_MODELS:
+        return R.build_from_cfg(
+            {"type": name, **{k: v for k, v in m.items()
+                              if k not in ("name",)}},
+            SEG_MODELS,
+            default_args={"num_classes": num_classes, "capacities": caps,
+                          "device": device})
     raise NotImplementedError(name)
+
+
+def register_det_builtins():
+    """Register the detection components (readers / backbones / necks /
+    heads / detectors / datasets) into the shared registries (reference:
+    det3d/models/registry.py + each module's @register_module decorator).
+    Lazy, so that seg-only use does not import the det stack."""
+    from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
+    from ..data.waymo import WaymoDataset
+    from . import readers as RD
+    from .center_head import CenterHead
+    from .rpn import RPN
+    from .scn import SpMiddleResNetFHDELKv3
+    from .voxelnet import VoxelNet
+
+    for reg, cls in ((R.READERS, RD.PillarFeatureNet),
+                     (R.BACKBONES, SpMiddleResNetFHDELKv3),
+                     (R.NECKS, RPN),
+                     (R.HEADS, CenterHead),
+                     (R.DETECTORS, VoxelNet),
+                     (R.DATASETS, NuScenesDataset),
+                     (R.DATASETS, SyntheticNuScenes),
+                     (R.DATASETS, WaymoDataset)):
+        if cls.__name__ not in reg:
+            reg.register_module(cls)
+
+
+def build_detector(model_cfg: dict, **default_args):
+    """Registry-driven detector construction (reference
+    det3d/models/builder.py:build_detector -> build_from_cfg). Takes a
+    dict with 'type' plus constructor arguments; the keys the detector's
+    constructor does not take (the nested reader / backbone / ... dicts of
+    a reference config, which the module composes itself) are dropped, and
+    `default_args` fill only the keys the dict lacks."""
+    register_det_builtins()
+    cfg = dict(model_cfg)
+    obj_type = cfg.pop("type", "VoxelNet")
+    cls = R.DETECTORS.get(obj_type)
+    if cls is None:
+        raise KeyError(f"{obj_type} not in detector registry")
+    # the JAX package filters by the flax dataclass's fields; an nn.Module
+    # takes its arguments through __init__
+    fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    kwargs = {k: v for k, v in cfg.items() if k in fields}
+    for k, v in default_args.items():
+        kwargs.setdefault(k, v)
+    return cls(**kwargs)
 
 
 def make_lr_schedule(cfg, world_size: int = 1):

@@ -55,7 +55,8 @@ from ..train.checkpoint import (checkpoint_meta, find_resume, load_checkpoint,
                                 save_checkpoint)
 from ..train.trainer import TrainState
 from ..utils.config import load_config
-from ..utils.logging import MetricsLogger, save_runtime_code
+from ..utils.logging import (MetricsLogger, TensorboardLogger,
+                             save_runtime_code)
 
 # the published recipe (configs/nusc/voxelnet/...elkv3.py), used without
 # --config as the JAX tool uses it
@@ -198,6 +199,7 @@ def main(argv=None) -> int:
     os.makedirs(run_dir, exist_ok=True)
     save_runtime_code(run_dir)
     jlog = MetricsLogger(run_dir, interval=1)
+    tb = TensorboardLogger(run_dir)
 
     def make_batch(idxs):
         return dp.collate_det([train_ds[int(i)] for i in idxs], cap)
@@ -232,6 +234,8 @@ def main(argv=None) -> int:
               + (f", peak memory {rec['peak_mem_gb']:.2f} GB"
                  if "peak_mem_gb" in rec else "") + ")", flush=True)
         jlog.log(rec)
+        tb.scalars({"loss/train": loss, "samples_per_sec": rate}, epoch)
+        tb.flush()
         save_checkpoint(run_dir, state, epoch,
                         meta={"config": args.config})
         if args.stop_after_epoch and epoch >= args.stop_after_epoch:

@@ -32,7 +32,8 @@ from ..train.checkpoint import (checkpoint_meta, find_resume, load_checkpoint,
                                 save_checkpoint)
 from ..train.metrics import MeanIoU
 from ..utils.config import load_config
-from ..utils.logging import MetricsLogger, save_runtime_code
+from ..utils.logging import (MetricsLogger, TensorboardLogger,
+                             save_runtime_code)
 
 
 def parse_args(argv=None):
@@ -126,6 +127,7 @@ def main(argv=None) -> int:
     os.makedirs(run_dir, exist_ok=True)
     save_runtime_code(run_dir)
     jlog = MetricsLogger(run_dir, interval=1)
+    tb = TensorboardLogger(run_dir)
 
     steps_per_epoch = max(1, len(train_ds) // batch)
     for epoch in range(start_epoch, cfg.num_epochs + 1):
@@ -162,8 +164,11 @@ def main(argv=None) -> int:
         miou = miou_metric.compute()
         print(f"epoch {epoch}: val mIoU (voxel) = {miou * 100:.2f}",
               flush=True)
-        jlog.log({"epoch": epoch, "loss/train": loss, "iou/val": float(miou),
-                  "scans_per_sec": steps_per_epoch * batch / dt})
+        scalars = {"loss/train": loss, "iou/val": float(miou),
+                   "scans_per_sec": steps_per_epoch * batch / dt}
+        jlog.log({"epoch": epoch, **scalars})
+        tb.scalars(scalars, epoch)
+        tb.flush()
         save_checkpoint(run_dir, state, epoch, metric=miou,
                         meta={"config": args.config})
         if args.stop_after_epoch and epoch >= args.stop_after_epoch:

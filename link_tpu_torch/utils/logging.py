@@ -1,6 +1,7 @@
-"""Structured training logs: JSONL metrics + running means. A copy of
-`link_tpu/utils/logging.py` without its TensorboardLogger (which writes
-through flax), kept here so the port imports nothing of the JAX package.
+"""Structured training logs: JSONL metrics + running means, and tensorboard
+scalars. A copy of `link_tpu/utils/logging.py`, kept here so the port
+imports nothing of the JAX package; its TensorboardLogger writes through
+`torch.utils.tensorboard` where the JAX package's writes through flax.
 
 Replaces torchie's LogBuffer + TextLoggerHook (reference:
 det3d/torchie/trainer/log_buffer.py, hooks/logger/text.py) and the seg
@@ -60,6 +61,40 @@ class MetricsLogger:
     def log(self, record: Dict):
         with open(self.path, "a") as f:
             f.write(json.dumps({"time": time.time(), **record}) + "\n")
+
+
+class TensorboardLogger:
+    """Tensorboard scalar events (reference: segmentation trainers.py:44,76
+    summary writer + detection TensorboardLoggerHook,
+    torchie/trainer/hooks/logger/tensorboard.py). Writes real event files
+    under <run_dir>/tensorboard through `torch.utils.tensorboard` when the
+    `tensorboard` package imports, and is a no-op otherwise (the JSONL log
+    stays authoritative)."""
+
+    def __init__(self, run_dir: str):
+        self._writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self._writer = SummaryWriter(os.path.join(run_dir, "tensorboard"))
+        except Exception:
+            pass
+
+    @property
+    def active(self) -> bool:
+        return self._writer is not None
+
+    def scalars(self, metrics: Dict[str, float], step: int):
+        if self._writer is None:
+            return
+        for k, v in metrics.items():
+            try:
+                self._writer.add_scalar(k, float(v), step)
+            except (TypeError, ValueError):
+                pass
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()
 
 
 def save_runtime_code(run_dir: str, repo_root: Optional[str] = None):
