@@ -201,6 +201,34 @@ Phases, in order (any failure raises and the script exits non-zero):
                  --epochs 1` in a fresh process (4 steps into
                  chiprun_out/det_train_run): losses and the peak memory of
                  a fresh process;
+ 14g2. dp_train data parallelism on one card, 2 ranks on cuda:0 over gloo
+                 (NCCL refuses two ranks on one card; a check of
+                 correctness, not of scaling), spawned by
+                 `link_tpu_torch.tools.dp_check`: (a) the seg DP step,
+                 ELKUNet cr1.0 f32 at the 80k cap, one scan a replica,
+                 and (b) the det DP step, CenterPoint-ELKv3 f32 at the
+                 163,840 cap, one ground-patch frame a replica (every
+                 level fits), each from seed-0 weights held against
+                 `sequential_dp_step` here (the replicas in turn, averaged,
+                 one update): loss 1e-4 (det 2e-5 relative), running
+                 statistics 1e-5, the averaged gradient's global norm,
+                 relative distance and leaf norms within 10x (at least
+                 1e-3) of the reference's gap to its own repeat, with
+                 planted faults (replica 0's gradient alone, the sum for
+                 the mean) that must read outside, and the parameters
+                 within 1e-6 of the optimizer's update from the rank's
+                 own gradient (`dp_check.compare`);
+                 (c) every rank given replica 0's batch against the
+                 one-device step; (d) the ranks' parameters equal to the
+                 bit; each rank's launches of the held steps (the DP
+                 path), ms per DP step beside the 1-rank step, the
+                 all-reduce's ms and bytes, peak memory per rank; with 2
+                 or more cards (a) again over NCCL, one rank a card; (e)
+                 `seg_train` and `det_train` with `--num-processes 2
+                 --dist-backend gloo --device cuda:0`, 1 epoch, each rank
+                 a fresh process: finite loss, one checkpoint writer
+                 (rank 0), launches per rank (logs in
+                 chiprun_out/dp_{seg,det}_train_rank*.log);
  14h. det_files  the det tools on the nuScenes-format files, under a user's
                  TF32 flags: `create_data` gt_database; `det_train` with
                  --db-info-path, 2 epochs, the second resumed with
@@ -3679,6 +3707,162 @@ def phase_det_train_cli(res, ctx):
     res["det_train_cli"] = _det_train_cli([], "det_train_run")[0]
 
 
+DP_RANKS = 2
+DP_CLI_TIMEOUT = 300
+
+
+def _cli_ranks(module, args, log_name, world=DP_RANKS,
+               timeout=DP_CLI_TIMEOUT):
+    """`python3 -m <module> <args>` as `world` ranks, each a fresh process
+    that joins the others through a file and prints its launch counts
+    last (`_COUNTED_RUN`); rank r's output in
+    chiprun_out/<log_name>_rank<r>.log. A rank that fails stops the
+    others and raises. Returns (seconds, each rank's output, each rank's
+    launch counts)."""
+    import shutil
+    import tempfile
+    rdv = tempfile.mkdtemp(prefix="dp_rendezvous_")
+    out = os.path.join(HERE, "chiprun_out", log_name)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    logs = [open(f"{out}_rank{r}.log", "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _COUNTED_RUN, module, *args,
+         "--coordinator", "file://" + os.path.join(rdv, "file"),
+         "--num-processes", str(world), "--process-id", str(r)],
+        cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.returncode for p in procs)
+                    or time.perf_counter() - t0 > timeout):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(rdv, ignore_errors=True)
+    s = time.perf_counter() - t0
+    texts = [open(f"{out}_rank{r}.log").read() for r in range(world)]
+    for r, text in enumerate(texts):
+        for line in text.splitlines()[-3:]:
+            log(f"{module.rsplit('.', 1)[-1]} rank {r}: {line}")
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{module} ranks exited "
+                             f"{[p.returncode for p in procs]} after "
+                             f"{s:.1f} s: {[t[-2000:] for t in texts]}")
+    launches = [json.loads(t.splitlines()[-1][len("launches "):])
+                for t in texts]
+    return s, texts, launches
+
+
+def _dp_cli(module, args, run_name, log_name):
+    """One CLI run on 2 ranks of cuda:0 over gloo: finite loss in rank 0's
+    metrics, exactly one checkpoint writer, the training kernels launched
+    on every rank. Returns its record."""
+    import shutil
+    run_dir = os.path.join(HERE, "runs", run_name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    s, texts, launches = _cli_ranks(
+        module, [*args, "--epochs", "1", "--device", "cuda:0",
+                 "--dist-backend", "gloo", "--run-dir", run_dir], log_name)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rec = [json.loads(line) for line in f][-1]
+    writers = [r for r, t in enumerate(texts) if "rank 0 wrote" in t]
+    ckpts = sorted(f for f in os.listdir(run_dir)
+                   if f.startswith("epoch_") and f.endswith(".pt"))
+    shutil.rmtree(run_dir)
+    rec = {"s": s, "writers": writers, "checkpoints": ckpts,
+           "launches": launches, **rec}
+    log(f"{module.rsplit('.', 1)[-1]} on {DP_RANKS} ranks of cuda:0: "
+        f"{s:.1f} s, loss {rec['loss/train']:.4f}, checkpoint writers "
+        f"{writers}, checkpoints {ckpts}, launches per rank "
+        f"{[{k: v for k, v in x.items() if v} for x in launches]}")
+    if (not np.isfinite(rec["loss/train"]) or writers != [0]
+            or sum(t.count("rank 0 wrote") for t in texts) != 1
+            or ckpts != ["epoch_1.pt"]
+            or any(x[k] == 0 for x in launches for k in TRAIN_KERNELS
+                   if k != "window_conv" or "det" in module)):
+        raise AssertionError(f"{module} on {DP_RANKS} ranks: {rec}")
+    return rec
+
+
+def phase_dp_train(res, ctx):
+    """Data parallelism on the card (phase 14g2 of the docstring)."""
+    import torch
+    from link_tpu_torch.tools import dp_check
+    out = dp_check.check(("seg", "det"), DP_RANKS, "cuda:0")
+    total = {}
+    rec = {"ranks_s": out["ranks_s"]}
+    for part in ("seg", "det"):
+        ranks = [r["jobs"][part] for r in out["ranks"]]
+        for r in ranks:
+            _add_launches(total, r["launches"])
+        if any(r["launches"] != ranks[0]["launches"] for r in ranks):
+            raise AssertionError(f"{part}: the ranks launched other "
+                                 f"kernels: {[r['launches'] for r in ranks]}")
+        want = TRAIN_KERNELS if part == "det" else tuple(
+            k for k in TRAIN_KERNELS if k != "window_conv")
+        if any(ranks[0]["launches"][k] == 0 for k in want):
+            raise AssertionError(f"{part} DP step launches "
+                                 f"{ranks[0]['launches']}")
+        rec[part] = {
+            "hold": out[part]["dp"], "same_batch": out[part]["same"],
+            "sequential_repeat": out[part]["dp"]["repeat"],
+            "one_device_repeat": out[part]["same"]["repeat"],
+            "one_rank_step_ms": out[part]["one_rank_step_ms"],
+            "dp_step_ms": [r["step_ms"] for r in ranks],
+            "dp_first_ms": [r["dp_first_ms"] for r in ranks],
+            "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+            "all_reduce_bytes": ranks[0]["all_reduce_bytes"],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+            "launches_per_rank": ranks[0]["launches"]}
+        if part == "seg":
+            rec[part]["eval_counters_equal"] = all(
+                r["eval_counters"] == ranks[0]["eval_counters"]
+                for r in ranks)
+        log(f"dp_train {part}: {DP_RANKS} ranks on cuda:0 (gloo): DP vs "
+            f"sequential {out[part]['dp']}; same batch vs one-device step "
+            f"{out[part]['same']}; ranks' parameters equal to the bit; ms "
+            f"per DP step {rec[part]['dp_step_ms']} against the 1-rank "
+            f"step's {out[part]['one_rank_step_ms']}; all-reduce "
+            f"{rec[part]['all_reduce_ms']} ms of "
+            f"{rec[part]['all_reduce_bytes']} B; peak memory per rank "
+            f"{rec[part]['peak_mem_gb']} GB; launches per rank "
+            f"{ {k: v for k, v in ranks[0]['launches'].items() if v} }")
+    res["dp_train_launches"] = total
+    if torch.cuda.device_count() >= 2:
+        n = torch.cuda.device_count()
+        multi = dp_check.check(("seg",), n, "cuda")
+        rec["nccl"] = {"cards": n, "hold": multi["seg"]["dp"],
+                       "dp_step_ms": [r["jobs"]["seg"]["step_ms"]
+                                      for r in multi["ranks"]],
+                       "all_reduce_ms": [r["jobs"]["seg"]["all_reduce_ms"]
+                                         for r in multi["ranks"]]}
+        log(f"dp_train seg over NCCL, {n} cards: {rec['nccl']}")
+    cli = {}
+    cli["seg_train"] = _dp_cli(
+        "link_tpu_torch.tools.seg_train",
+        [SEG_CONFIG, "--synthetic", "dataset.synthetic_length=8"],
+        "chip_smoke_dp_seg", "dp_seg_train")
+    cli["det_train"] = _dp_cli(
+        "link_tpu_torch.tools.det_train",
+        ["--synthetic", "--samples-per-device", "1"], "chip_smoke_dp_det",
+        "dp_det_train")
+    cli_total = {}
+    for r in cli.values():
+        for x in r["launches"]:
+            _add_launches(cli_total, x)
+    res["dp_train_cli_launches"] = cli_total
+    rec["cli"] = cli
+    rec["card"] = card_line()
+    res["dp_train"] = rec
+
+
 def _launch_counts():
     from link_tpu_torch.ops import kernels
     return {fn.__name__: fn.launches for fn in kernels.KERNELS}
@@ -5318,6 +5502,8 @@ MAIN_PATHS = {"seg": "launches",
               "waymo": "waymo_launches",
               "tracking_tools": "tracking_tools_launches",
               "train": "train_launches", "det_train": "det_train_launches",
+              "dp_train": "dp_train_launches",
+              "dp_train_cli": "dp_train_cli_launches",
               "probes": "probe_launches"}
 
 
@@ -5334,8 +5520,9 @@ def kernels_line(res):
     the four `det_test --two-stage` runs, one bf16 pass of the Waymo val
     frames with device NMS and the Waymo training steps, the tracking
     tools' det_test run and profile_fwd, one train step, one training
-    step of each other seg family, one det train step, one run of the
-    probe tool), and the error, times and bound of `KERNEL_CASE`. A kernel
+    step of each other seg family, one det train step, the data-parallel
+    seg and det steps on each of 2 ranks and the 2-rank seg_train and
+    det_train runs, one run of the probe tool), and the error, times and bound of `KERNEL_CASE`. A kernel
     without a case or without a launch on any main path fails the
     script."""
     from link_tpu_torch.ops import kernels
@@ -5395,12 +5582,14 @@ def main() -> int:
                   phase_det_train_grad, phase_det_train_golden,
                   phase_det_train_main,
                   phase_det_train_profile, phase_det_train_cli,
-                  phase_det_files, phase_det_dense, phase_det_dcn,
+                  phase_dp_train, phase_det_files, phase_det_dense, phase_det_dcn,
                   phase_det_two_stage, phase_waymo, phase_tracking_tools,
                   phase_path_shapes, phase_probes):
         t0 = time.perf_counter()
         phase(res, ctx)
-        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        res.setdefault("phase_s", {})[phase.__name__] = (
+            time.perf_counter() - t0)
+        log(f"{phase.__name__}: {res['phase_s'][phase.__name__]:.1f} s")
     res["total_s"] = time.perf_counter() - t_start
     res["capture_failed"] = CAPTURE_FAILED
 

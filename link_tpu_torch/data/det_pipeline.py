@@ -281,7 +281,7 @@ def collate_det(samples: List[Dict], voxel_capacity: int,
 def det_inputs(batch: Dict, device="cuda"):
     """(voxels, coords, num_points, nnz) tensors of a collated batch on
     `device`, in the order VoxelNet.forward takes them."""
-    return tuple(torch.as_tensor(np.asarray(batch[k])).to(device)
+    return tuple(torch.as_tensor(batch[k]).to(device)
                  for k in ("voxels", "coords", "num_points", "nnz"))
 
 
@@ -292,6 +292,6 @@ def det_targets(batch: Dict, device="cuda") -> Dict[str, List[torch.Tensor]]:
     for key in TARGET_KEYS:
         dt = (torch.float32 if key in ("hm", "anno_box", "mask")
               else torch.long)
-        out[key] = [torch.as_tensor(np.asarray(v)).to(device=device, dtype=dt)
+        out[key] = [torch.as_tensor(v).to(device=device, dtype=dt)
                     for v in batch[key]]
     return out

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..data.semantic_kitti import SemanticKITTI, SyntheticSemanticKITTI
+from ..nn.modules import sync_batch_norms
 from ..train import schedules
 from ..train.trainer import make_sgd
 from ..utils import registry as R
@@ -33,11 +34,18 @@ R.DATASETS.register_module(SyntheticSemanticKITTI)
 def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
                dtype: str = "float32", device="cuda",
                generator: Optional[torch.Generator] = None,
-               grid_extent=None) -> torch.nn.Module:
+               grid_extent=None, bn_group=None) -> torch.nn.Module:
     """The config's seg model. `grid_extent` reaches the models with ELK
     blocks (their dense aux path); SPVCNN runs float32 only, as the JAX
     model; its dropout rate is `model.dropout_rate` (0.3, the reference's,
-    when the config has none) and is seeded from `generator`'s seed."""
+    when the config has none) and is seeded from `generator`'s seed.
+    `bn_group`, a process group, makes every BatchNorm a SyncBN over it
+    (JAX's `bn_axis`; off by default)."""
+    return sync_batch_norms(_make_model(cfg, capacities, dtype, device,
+                                        generator, grid_extent), bn_group)
+
+
+def _make_model(cfg, capacities, dtype, device, generator, grid_extent):
     m = cfg.model
     caps = tuple(capacities or m.get("capacities", DEFAULT_CAPACITIES))
     num_classes = cfg.data.num_classes

@@ -38,12 +38,18 @@ def batch_norm_2d(mod: nn.modules.batchnorm._BatchNorm,
     """`mod` over NCHW (or (N, C)) `h` in float32 (float64 stays float64).
     Eval mode reads the running statistics; training normalizes with the
     batch's and moves the running ones by `mod.momentum` towards the batch
-    mean and the biased batch variance (flax's update)."""
+    mean and the biased batch variance (flax's update). With
+    `mod.sync_group` set (`nn.modules.sync_batch_norms`), the batch
+    statistics are the replicas' means of the mean and of the mean of
+    squares, as flax's `BatchNorm(axis_name=...)` takes them."""
     x = h.to(torch.promote_types(h.dtype, torch.float32))
     if not mod.training:
         return F.batch_norm(x, mod.running_mean, mod.running_var, mod.weight,
                             mod.bias, False, 0.0, mod.eps)
     red = (0,) + tuple(range(2, x.dim()))
+    group = getattr(mod, "sync_group", None)
+    if group is not None:
+        return _synced_batch_norm(mod, x, red, group)
     with torch.no_grad():
         mean = x.mean(dim=red)
         var = torch.clamp_min(x.square().mean(dim=red) - mean.square(), 0.0)
@@ -52,6 +58,27 @@ def batch_norm_2d(mod: nn.modules.batchnorm._BatchNorm,
         mod.num_batches_tracked.add_(1)
     return F.batch_norm(x, None, None, mod.weight, mod.bias, True, 0.0,
                         mod.eps)
+
+
+def _synced_batch_norm(mod, x, red, group):
+    """Training-mode `batch_norm_2d` over the replicas of `group`: flax's
+    `_compute_stats` with an axis name (var = E[x^2] - E[x]^2, clipped at
+    0, each mean the replicas' mean, one differentiable all-reduce)."""
+    from torch.distributed import get_world_size
+    from ..nn.modules import differentiable_all_reduce
+    c = x.shape[1]
+    moments = differentiable_all_reduce(torch.cat([
+        x.mean(dim=red), x.square().mean(dim=red)]), group) / get_world_size(
+            group)
+    mean, mean2 = moments[:c], moments[c:]
+    var = torch.clamp_min(mean2 - mean.square(), 0.0)
+    with torch.no_grad():
+        for buf, batch in ((mod.running_mean, mean), (mod.running_var, var)):
+            buf.mul_(1 - mod.momentum).add_(mod.momentum * batch.to(buf.dtype))
+        mod.num_batches_tracked.add_(1)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    inv = torch.rsqrt(var + mod.eps) * mod.weight
+    return (x - mean.view(shape)) * inv.view(shape) + mod.bias.view(shape)
 
 
 def run_dense(seq: nn.Sequential, h: torch.Tensor) -> torch.Tensor:

@@ -74,7 +74,9 @@ class SparseConv3d(nn.Module):
 class SparseBatchNorm(nn.Module):
     """BatchNorm over the valid voxel rows (BatchNorm1d semantics: eps 1e-5,
     momentum 0.1, biased variance to normalize, unbiased for the running
-    estimate). Eval mode uses the running statistics."""
+    estimate). Eval mode uses the running statistics. With `sync_group` a
+    process group (`sync_batch_norms`), training takes the statistics over
+    every replica's rows: SyncBN, JAX's `axis_name`."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, device=None):
@@ -89,6 +91,7 @@ class SparseBatchNorm(nn.Module):
                              torch.ones(num_features, device=device))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long, device=device))
+        self.sync_group = None
 
     def forward(self, st: SparseTensor) -> SparseTensor:
         f32 = st.feats.to(torch.float32)
@@ -98,12 +101,17 @@ class SparseBatchNorm(nn.Module):
             mask = (st.mask[..., None] if dense
                     else st.valid_mask()[:, None]).to(torch.float32)
             red = tuple(range(f32.dim() - 1))
-            n = torch.clamp(mask.sum(), min=1.0)
-            mean = (f32 * mask).sum(red) / n
+            n = mask.sum()
+            s1 = (f32 * mask).sum(red)
+            s2 = (f32.square() * mask).sum(red)
+            if self.sync_group is not None:
+                n, s1, s2 = _sum_over_replicas(self.sync_group, n, s1, s2)
+            n = torch.clamp(n, min=1.0)
+            mean = s1 / n
             # torch.maximum, not clamp: where the variance is exactly 0 (a
             # level with one voxel, a dead channel) it halves the gradient
             # as jnp.maximum does; clamp would pass it whole
-            var = (f32.square() * mask).sum(red) / n - mean.square()
+            var = s2 / n - mean.square()
             var = torch.maximum(var, torch.zeros_like(var))
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
@@ -120,6 +128,38 @@ class SparseBatchNorm(nn.Module):
             # re-zero the empty cells (the affine bias is nonzero there)
             return st.masked(out.to(st.feats.dtype))
         return st.replace(feats=out.to(st.feats.dtype))
+
+
+def differentiable_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over the replicas of `group`, whose backward sums the
+    replicas' gradients (`torch.distributed.nn.functional.all_reduce`; the
+    FutureWarning that newer PyTorch gives for it is silenced)."""
+    import warnings
+    from torch.distributed.nn.functional import all_reduce
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return all_reduce(t, group=group)
+
+
+def _sum_over_replicas(group, *tensors):
+    """Each tensor summed over the replicas of `group` (JAX's `psum`),
+    through one all-reduce that autograd differentiates: the backward sums
+    the replicas' gradients in turn."""
+    flat = differentiable_all_reduce(
+        torch.cat([t.reshape(-1) for t in tensors]), group)
+    return tuple(v.view_as(t) for t, v in
+                 zip(tensors, flat.split([t.numel() for t in tensors])))
+
+
+def sync_batch_norms(model: nn.Module, group) -> nn.Module:
+    """Make every BatchNorm of `model`, sparse and dense, a SyncBN over the
+    replicas of process group `group` (None: each replica's own batch, the
+    default): what JAX's `bn_axis` does to the modules it reaches. Returns
+    `model`."""
+    for m in model.modules():
+        if isinstance(m, (SparseBatchNorm, nn.modules.batchnorm._BatchNorm)):
+            m.sync_group = group
+    return model
 
 
 class SparseLayerNorm(nn.Module):

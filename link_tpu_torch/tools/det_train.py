@@ -1,7 +1,8 @@
 """Detection training entry point of the PyTorch port.
 
-Counterpart of tools/det_train.py (reference detection/tools/train.py) on
-one process and one device: CenterPoint-ELKv3 (VoxelNet) trained with
+Counterpart of tools/det_train.py (reference detection/tools/train.py),
+data parallel with one process per replica: CenterPoint-ELKv3 (VoxelNet)
+trained with
 one-cycle Adam (lr_max 1e-3, momentum 0.95 -> 0.85, decoupled decay 0.01),
 a global-norm clip of 35 and the CenterHead loss, the recipe read from the
 reference-style config; one checkpoint per epoch, and `--resume`
@@ -22,17 +23,20 @@ Usage:
       [--config configs/nusc/voxelnet/...elkv3.py] [--epochs N] \
       [--samples-per-device 2] [--voxel-capacity 163840] [--run-dir D] \
       [--resume [auto|path]] [--stop-after-epoch N] \
-      [--dense-from-level L] [--device cpu]
+      [--dense-from-level L] [--device cpu] [--coordinator A \
+      --num-processes W --process-id R] [--dist-backend nccl|gloo]
 
 As in the JAX tool, --config sets the recipe, its total_epochs included
 (over --epochs), its `data.train_anno` (over --info-path) and, with
 `model.bbox_head.dcn_head`, the DCN head; --dense-from-level L runs the
-backbone's levels from L on on a masked dense grid. The multi-host flags
-(--coordinator, --num-processes, --process-id) raise NotImplementedError:
-data parallelism is not ported yet (ROADMAP §1 item 8). Unlike the
-JAX tool, a missing info pkl or GT database raises FileNotFoundError
-naming the path (JAX falls back to synthetic frames, or trains without
-GT-AUG).
+backbone's levels from L on on a masked dense grid. The multi-process
+flags start one rank as in `seg_train` (or torchrun's environment): each
+rank trains --samples-per-device frames a step, its rows of the epoch
+sharded as the JAX tool shards them, and the one-cycle schedule spans
+epochs x len(frames) // (W x samples-per-device) steps; rank 0 alone logs
+and writes checkpoints. Unlike the JAX tool, a missing info pkl or GT
+database raises FileNotFoundError naming the path (JAX falls back to
+synthetic frames, or trains without GT-AUG).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ..data.gt_aug import DataBaseSampler
 from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
 from ..inference import config_dcn_head
 from ..models.voxelnet import VoxelNet
+from ..parallel import multihost as mh
 from ..train import det_trainer as DT
 from ..train import schedules
 from ..train.checkpoint import (checkpoint_meta, find_resume, load_checkpoint,
@@ -86,9 +91,6 @@ def parse_args(argv=None):
     ap.add_argument("--voxel-capacity", type=int, default=163840)
     ap.add_argument("--grid", type=int, nargs=3, default=list(GRID),
                     help="the voxel grid of the real data (x y z)")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--dense-from-level", type=int, default=None,
                     help="backbone levels >= L on a masked dense grid")
     ap.add_argument("--resume", nargs="?", const="auto", default=None,
@@ -99,17 +101,10 @@ def parse_args(argv=None):
                          "one-cycle schedule still spans the full --epochs, "
                          "so a later --resume continues the same recipe")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (the default) or cpu")
+                    help="cuda (the default: cuda:{local rank}), cuda:N or "
+                         "cpu")
+    mh.add_dist_args(ap)
     return ap.parse_args(argv)
-
-
-def _unported(args) -> None:
-    """Raise on the parts that wait for other slices of the port."""
-    if (args.coordinator or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "multi-host training: data parallelism is not ported yet "
-            "(ROADMAP §1 item 8)")
 
 
 def recipe(args) -> dict:
@@ -128,12 +123,13 @@ def recipe(args) -> dict:
     return rc
 
 
-def train_dataset(args):
+def train_dataset(args, world: int = 1):
     """The training frames and their grid: the train infos with GT-AUG, or
-    synthetic frames."""
+    synthetic frames (at least one step of the world's)."""
     if args.synthetic:
         print("using synthetic nuScenes")
-        return (SyntheticNuScenes(length=max(8, args.samples_per_device),
+        return (SyntheticNuScenes(length=max(8, world
+                                             * args.samples_per_device),
                                   mode="train",
                                   max_voxels=args.voxel_capacity), GRID)
     for flag, path in (("--info-path", args.info_path),
@@ -150,17 +146,16 @@ def train_dataset(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    _unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to train on "
-                           "the CPU")
+    mesh = mh.init_from_args(args)
+    device, rank, world = mesh.device, mesh.rank, mesh.world_size
+    is_main = rank == 0
 
     rc = recipe(args)
     epochs = rc["epochs"]
     spd = args.samples_per_device
+    world_spd = world * spd
 
-    train_ds, grid = train_dataset(args)
+    train_ds, grid = train_dataset(args, world)
 
     cap = args.voxel_capacity * spd
     model = VoxelNet(num_input_features=5, batch_size=spd, grid_shape=grid,
@@ -169,7 +164,7 @@ def main(argv=None) -> int:
                      dcn_head=config_dcn_head(args.config),
                      dense_from_level=args.dense_from_level, device=device,
                      generator=torch.Generator().manual_seed(0))
-    steps_per_epoch = max(1, len(train_ds) // spd)
+    steps_per_epoch = max(1, len(train_ds) // world_spd)
     total_steps = epochs * steps_per_epoch
     lr_fn, mom_fn = schedules.one_cycle(
         rc["lr_max"], total_steps, moms=rc["moms"],
@@ -177,9 +172,11 @@ def main(argv=None) -> int:
     opt = DT.make_one_cycle_adam(model, lr_fn, mom_fn,
                                  weight_decay=rc["wd"], grad_clip=rc["clip"])
     state = TrainState(model, opt)
-    nparams = sum(p.numel() for p in model.parameters())
-    print(f"params: {nparams / 1e6:.2f}M, grid {grid}, capacities "
-          f"{model.backbone.capacities}, total_steps={total_steps}")
+    if is_main:
+        nparams = sum(p.numel() for p in model.parameters())
+        print(f"params: {nparams / 1e6:.2f}M, grid {grid}, capacities "
+              f"{model.backbone.capacities}, total_steps={total_steps}, "
+              f"world batch {world_spd}")
 
     run_dir = args.run_dir or os.path.join("runs", "det-" +
                                            time.strftime("%m%d%H%M"))
@@ -196,13 +193,15 @@ def main(argv=None) -> int:
         elif args.resume != "auto":
             raise FileNotFoundError(args.resume)
 
-    os.makedirs(run_dir, exist_ok=True)
-    save_runtime_code(run_dir)
-    jlog = MetricsLogger(run_dir, interval=1)
-    tb = TensorboardLogger(run_dir)
+    if is_main:     # rank 0 logs and checkpoints (the trainer's hooks)
+        os.makedirs(run_dir, exist_ok=True)
+        save_runtime_code(run_dir)
+        jlog = MetricsLogger(run_dir, interval=1)
+        tb = TensorboardLogger(run_dir)
 
     def make_batch(idxs):
-        return dp.collate_det([train_ds[int(i)] for i in idxs], cap)
+        return mh.make_global_batch(mesh, [dp.collate_det(
+            [train_ds[int(i)] for i in idxs], cap)])
 
     for epoch in range(start_epoch, epochs + 1):
         # >= (not ==), so that a run resumed past the fading epoch stays
@@ -210,38 +209,48 @@ def main(argv=None) -> int:
         if epoch >= args.no_aug_from and hasattr(train_ds, "db_sampler"):
             train_ds.db_sampler = None
         idx = epoch_indices(len(train_ds), epoch)
-        shard = shard_indices(idx[:steps_per_epoch * spd], 1)[0]
+        shard = shard_indices(idx[:steps_per_epoch * world_spd],
+                              world)[rank]
         t0 = time.time()
         losses = []
         for b in PrefetchLoader(
                 lambda step, shard=shard: make_batch(
                     shard[step * spd:(step + 1) * spd]), steps_per_epoch):
-            metrics = DT.det_train_step(model, opt, b)
+            metrics = DT.det_train_step(model, opt, b, group=mesh.group)
             state.step = opt.count
             losses.append(metrics["loss"])
         loss = float(torch.stack(losses).mean())      # waits for the device
         dt = time.time() - t0
-        rate = steps_per_epoch * spd / dt
+        rate = steps_per_epoch * world_spd / dt
         rec = {"epoch": epoch, "step": opt.count, "loss/train": loss,
                "samples_per_sec": rate,
                "gt_aug": getattr(train_ds, "db_sampler", None) is not None}
         if device.type == "cuda":
             # since the process started: the step's peak in a fresh process
-            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"epoch {epoch}: loss={loss:.4f} ({rate:.2f} samples/s, "
-              f"{dt * 1e3 / steps_per_epoch:.1f} ms/step, step {opt.count}, "
-              f"lr {lr_fn(opt.count):.6g}"
-              + (f", peak memory {rec['peak_mem_gb']:.2f} GB"
-                 if "peak_mem_gb" in rec else "") + ")", flush=True)
-        jlog.log(rec)
-        tb.scalars({"loss/train": loss, "samples_per_sec": rate}, epoch)
-        tb.flush()
-        save_checkpoint(run_dir, state, epoch,
-                        meta={"config": args.config})
+            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(
+                device) / 2**30
+            if world > 1:
+                print(f"rank {rank}: peak memory {rec['peak_mem_gb']:.2f} "
+                      "GB", flush=True)
+        if is_main:
+            print(f"epoch {epoch}: loss={loss:.4f} ({rate:.2f} samples/s, "
+                  f"{dt * 1e3 / steps_per_epoch:.1f} ms/step, step "
+                  f"{opt.count}, lr {lr_fn(opt.count):.6g}"
+                  + (f", peak memory {rec['peak_mem_gb']:.2f} GB"
+                     if "peak_mem_gb" in rec else "") + ")", flush=True)
+            jlog.log(rec)
+            tb.scalars({"loss/train": loss, "samples_per_sec": rate}, epoch)
+            tb.flush()
+            path = save_checkpoint(run_dir, state, epoch,
+                                   meta={"config": args.config})
+            print(f"rank 0 wrote {path}", flush=True)
         if args.stop_after_epoch and epoch >= args.stop_after_epoch:
-            print(f"stopping after epoch {epoch} (--stop-after-epoch)",
-                  flush=True)
+            if is_main:
+                print(f"stopping after epoch {epoch} (--stop-after-epoch)",
+                      flush=True)
             break
+    if mesh.group is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -4,7 +4,11 @@ the det train and predict steps.
 PyTorch counterpart of `link_tpu/train/det_trainer.py` (reference:
 detection/det3d/torchie/trainer/trainer.py:138-610, hooks/optimizer.py:7-22
 (clip 35), solver/fastai_optim.py:121, learning_schedules_fastai.py:77-97,
-apis/train.py:156-337), single device: no mesh and no data parallelism.
+apis/train.py:156-337). Data parallel with one process per replica
+(`link_tpu_torch.parallel`): given a process group, the step averages the
+gradients, the loss terms and the running statistics over the replicas
+before `OneCycleAdam` clips and applies the averaged gradient, as JAX's
+step on a mesh clips the mean.
 
 `OneCycleAdam` runs the JAX package's optax chain in its order and with its
 constants: clip by global norm, Adam whose beta1 follows the one-cycle
@@ -24,6 +28,7 @@ from torch.profiler import record_function
 
 from ..data.det_pipeline import det_inputs, det_targets
 from ..models.center_head import CODE_WEIGHTS, center_head_loss, decode_boxes
+from ..parallel import all_reduce_mean, replica_tensors
 
 # profiler ranges of one train step (torch.profiler.record_function)
 RANGES = ("det_train/forward", "det_train/backward", "det_train/optimizer")
@@ -129,12 +134,15 @@ def make_one_cycle_adam(model: torch.nn.Module, lr_fn, mom_fn,
 
 def det_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                    batch: Dict, weight: float = 0.25,
-                   code_weights=CODE_WEIGHTS) -> Dict[str, torch.Tensor]:
+                   code_weights=CODE_WEIGHTS,
+                   group=None) -> Dict[str, torch.Tensor]:
     """One optimization step of the VoxelNet on a collated batch with
     targets (`det_pipeline.collate_det`): forward in train mode, the
-    CenterHead loss, backward, `opt.step()` (`make_det_train_step`'s step on
-    one device). Returns the 0-d tensors {loss, hm_loss_t, loc_loss_t} on
-    the model's device."""
+    CenterHead loss, backward, `opt.step()` (`make_det_train_step`'s step).
+    With `group`, a process group of replicas, the gradients, the running
+    statistics and the loss terms are the replicas' means before the
+    update (one all-reduce; the step on a mesh). Returns the 0-d tensors
+    {loss, hm_loss_t, loc_loss_t} on the model's device."""
     model.train()
     device = next(model.parameters()).device
     # the ranges cost nothing outside a profiler run
@@ -146,9 +154,12 @@ def det_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
         loss, logs = center_head_loss(preds, example, weight, code_weights)
     with record_function(RANGES[1]):
         loss.backward()
+    metrics = {k: v.detach() for k, v in logs.items()}
+    if group is not None:
+        all_reduce_mean(replica_tensors(model, metrics), group)
     with record_function(RANGES[2]):
         opt.step()
-    return {k: v.detach() for k, v in logs.items()}
+    return metrics
 
 
 def det_predict_step(model: torch.nn.Module, batch: Dict, test_cfg: Dict):

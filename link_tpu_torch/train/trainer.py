@@ -1,8 +1,11 @@
 """Segmentation training runtime: train state, train and eval steps.
 
 PyTorch counterpart of `link_tpu/train/trainer.py` (reference:
-segmentation/core/trainers.py:14-121), single device: no mesh and no data
-parallelism.
+segmentation/core/trainers.py:14-121). Data parallel with one process per
+replica (`link_tpu_torch.parallel`): given a process group, the train
+step averages the gradients, the loss terms and the BatchNorm running
+statistics over the replicas before the update (JAX's `pmean`s), and the
+eval step sums the IoU counters (`psum`).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Dict, Optional
 import torch
 from torch.profiler import record_function
 
+from ..parallel import DataMesh, all_reduce_mean, replica_tensors
 from ..sparse.tensor import make_sparse_tensor
 from . import losses as L
 from .metrics import iou_counters
@@ -64,15 +68,19 @@ def _batch_on(model: torch.nn.Module, batch: Dict):
 
 def seg_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                    batch: Dict, ignore_label: int = 0,
-                   lr: Optional[float] = None) -> Dict[str, torch.Tensor]:
+                   lr: Optional[float] = None,
+                   group=None) -> Dict[str, torch.Tensor]:
     """One optimization step: forward in train mode, CE + Lovász, backward,
     SGD update (trainers.py:41-81). `lr`, when given, is this step's
-    learning rate (the schedule's value). Returns the 0-d tensors
-    {"loss", "loss_ce", "loss_lovasz"} on the model's device."""
+    learning rate (the schedule's value). With `group`, a process group of
+    replicas, the gradients, the running statistics and the loss terms are
+    the replicas' means before the update (one all-reduce). Returns the
+    0-d tensors {"loss", "loss_ce", "loss_lovasz"} on the model's
+    device."""
     model.train()
     if lr is not None:
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for pg in opt.param_groups:
+            pg["lr"] = lr
     # the ranges cost nothing outside a profiler run
     with record_function(RANGES[0]):
         st, labels, valid = _batch_on(model, batch)
@@ -81,10 +89,13 @@ def seg_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
         loss, aux = L.segmentation_loss(logits, labels, valid, ignore_label)
     with record_function(RANGES[1]):
         loss.backward()
+    metrics = {"loss": loss.detach(),
+               **{k: v.detach() for k, v in aux.items()}}
+    if group is not None:
+        all_reduce_mean(replica_tensors(model, metrics), group)
     with record_function(RANGES[2]):
         opt.step()
-    return {"loss": loss.detach(),
-            **{k: v.detach() for k, v in aux.items()}}
+    return metrics
 
 
 def seg_eval_step(model: torch.nn.Module, batch: Dict, num_classes: int,
@@ -99,3 +110,43 @@ def seg_eval_step(model: torch.nn.Module, batch: Dict, num_classes: int,
         counters = iou_counters(preds, labels, valid, num_classes,
                                 ignore_label)
     return preds, counters
+
+
+def make_dp_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                       mesh: DataMesh, ignore_label: int = 0):
+    """Stands for `make_dp_train_step`: step(batch, lr=None) trains on this
+    rank's batch and averages over the mesh's replicas (`seg_train_step`
+    with the mesh's group). Each replica's BatchNorm normalizes with its
+    own batch's statistics (the segmentation reference trains without
+    SyncBN, train.py:97-100); the running estimates are the replicas'
+    mean."""
+
+    def step(batch: Dict, lr: Optional[float] = None):
+        return seg_train_step(model, opt, batch, ignore_label, lr,
+                              group=mesh.group)
+
+    return step
+
+
+def make_dp_eval_step(model: torch.nn.Module, mesh: DataMesh,
+                      num_classes: int, ignore_label: int = 0):
+    """Stands for `make_dp_eval_step`: step(batch) -> (this rank's voxel
+    predictions, the IoU counters summed over the replicas; reference
+    MeanIoU all-reduce, callbacks.py:56-61). A rank whose share of the
+    split has run out passes None: it adds zero counters, so that every
+    rank makes the same collective calls."""
+
+    def step(batch: Optional[Dict]):
+        if batch is None:
+            preds = None
+            counters = torch.zeros((3, num_classes), dtype=torch.int32,
+                                   device=mesh.device)
+        else:
+            preds, counters = seg_eval_step(model, batch, num_classes,
+                                            ignore_label)
+            counters = counters.clone()     # out of inference mode
+        if mesh.group is not None:
+            torch.distributed.all_reduce(counters, group=mesh.group)
+        return preds, counters
+
+    return step
