@@ -139,6 +139,24 @@ Phases, in order (any failure raises and the script exits non-zero):
                  memory;
  14. train_profile one more step under torch.profiler: device time by kernel,
                  idle share, and the forward / backward / optimizer split;
+ 14'. remat_train rematerialized seg training (`remat=True`,
+                 `link_tpu_torch/nn/remat.py`, as `seg_train` builds):
+                 ELKUNet cr1.0 f32 at 13's inputs (batch 2, the recipe's
+                 SGD), ELKUNet in bf16 at `profile_fwd --train`'s step
+                 (batch 1, SGD lr 0.01), ELKEncoder (through its dense aux
+                 grid) and MinkUNet f32 at 13's inputs: from the same
+                 weights on the same batch one step without remat, two
+                 repeats and one step with remat: the loss (relative) and
+                 every running statistic within 1e-5, the gradients by
+                 `dp_check.grad_gaps` within 10x the widest of the plain
+                 step's repeat distances (the sum for the mean planted,
+                 which must read outside), `gather_conv`, `sorted_join` and `gather_wgrad`
+                 launched as often with remat as without (MinkUNet's
+                 policy keeps the plans only, as JAX's: its replay runs
+                 the 36 convs of its blocks again), ms per step both
+                 ways, peak memory above the resident; then ELKUNet's two
+                 cases' steady step in four fresh processes (plain and
+                 remat): peak memory;
  14a. seg_families_train ELKEncoder, MinkUNet and SPVCNN each trained by
                  its config's recipe (cr 1.0, the config's capacities x
                  batch 2, float32, SGD under cosine_warmup; SPVCNN with its
@@ -201,6 +219,22 @@ Phases, in order (any failure raises and the script exits non-zero):
                  --epochs 1` in a fresh process (4 steps into
                  chiprun_out/det_train_run): losses and the peak memory of
                  a fresh process;
+ 14g'. det_train_bf16 CenterPoint-ELKv3 with bfloat16 compute (float32
+                 parameters and Adam state) against float32, 10 one-cycle
+                 Adam steps each (lr_max 1e-3) from the seed-0 weights on
+                 14e's two batches in turn, TF32 off: the bounds of
+                 tests/test_det_train_bf16.py (step 0 within 3%, median
+                 gap < 0.25, last < 0.3, both curves ending below 0.7 of
+                 their start), ms per step, peak memory above the
+                 resident, launches of a step;
+ 14g''. det_plain the plain CenterPoint VoxelNet (`elk=False`) at
+                 det_test's capacities, seed-0 weights: the f32 forward +
+                 decode card against CPU on the hold frame (< 1e-5, every
+                 level fitting); bf16 forward + decode + device NMS on the
+                 det frames under a user's TF32 flags (launches per frame:
+                 8 joins, 21 convs, 3 `rotated_nms`; frames/s, profile,
+                 peak memory); one f32 step of the tiny plain VoxelNet
+                 card against CPU, held as det_train_grad;
  14g2. dp_train data parallelism on one card, 2 ranks on cuda:0 over gloo
                  (NCCL refuses two ranks on one card; a check of
                  correctness, not of scaling), spawned by
@@ -220,7 +254,11 @@ Phases, in order (any failure raises and the script exits non-zero):
                  own gradient (`dp_check.compare`);
                  (c) every rank given replica 0's batch against the
                  one-device step; (d) the ranks' parameters equal to the
-                 bit; each rank's launches of the held steps (the DP
+                 bit; (a') the seg DP step with SyncBN from a model built
+                 with remat and without (`dp_check`'s part
+                 seg_syncbn_remat): the remat step held against the plain
+                 one as 14', the same all-reduce calls and launches; each
+                 rank's launches of the held steps (the DP
                  path), ms per DP step beside the 1-rank step, the
                  all-reduce's ms and bytes, peak memory per rank; with 2
                  or more cards (a) again over NCCL, one rank a card; (e)
@@ -816,27 +854,118 @@ HAND_KERNELS = ("sorted_join", "join_pin", "gather_conv", "w_frag", "window_conv
                 "nms_mask", "nms_walk")
 
 
+# the profiler's warm-up step: tiny launches, at least this many and for
+# at least this long. In a long process a trace lost the card's records of
+# a session's first ~37 launches (~2.9 ms; on the H100, ~470 s into this
+# script, the first join of a det pass among them; 50 ms of idle host
+# time at the window's start did not help), so a warm-up step that the
+# profiler discards takes them
+PROFILE_WARM_LAUNCHES, PROFILE_WARM_S = 256, 0.02
+# a trace that still lost a `sorted_join` record (1 of 25 in one run of
+# this script with the warm-up) is taken again, at most this many times
+PROFILE_RETAKES = 2
+
+
+def _traced(run):
+    """`run()` under torch.profiler (host and card), as the active step of
+    a schedule whose warm-up step makes tiny launches (PROFILE_WARM_*);
+    returns the finished profile, which holds the active step only (in a
+    "ProfilerStep#" range)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        n, t_end = 0, time.perf_counter() + PROFILE_WARM_S
+        while n < PROFILE_WARM_LAUNCHES or time.perf_counter() < t_end:
+            x.add_(1)
+            n += 1
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def _join_trace(prof, launched: int) -> dict:
+    """Whether a finished profile's trace holds each of the `launched`
+    `sorted_join` launches of its run (the wrapper's count) as a kernel
+    record beside the runtime record that launched it. CUPTI can drop a
+    record, and a launch that lacks either cannot be placed in its join
+    site's range (`tools/join_sites.range_stats`). Read beside it: the
+    launches whose runtime record lies in no join range, and the least
+    distance of one inside a range from that range's start and end (us)."""
+    from torch.autograd import DeviceType
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    runtime = {e.correlation_id(): e for e in cpu
+               if e.name().startswith("cu")}
+    spans = [(e.start_ns(), e.end_ns(), e.start_thread_id()) for e in cpu
+             if e.name() == JOIN_RANGE]
+    kern = [e.correlation_id() for e in events
+            if e.device_type() != DeviceType.CPU
+            and "sorted_join_kernel" in e.name()]
+    margins, outside = [], 0
+    for c in kern:
+        r = runtime.get(c)
+        if r is None:
+            continue
+        inside = [(r.start_ns() - a, b - r.end_ns()) for a, b, th in spans
+                  if th == r.start_thread_id() and a <= r.start_ns() < b]
+        if inside:
+            margins.append(max(inside, key=lambda m: m[0] + m[1]))
+        else:
+            outside += 1
+    out = {"launched": launched, "kernel_records": len(kern),
+           "without_runtime_record": sum(c not in runtime for c in kern),
+           "outside_ranges": outside,
+           "least_us_from_range_start": min(
+               (m[0] / 1e3 for m in margins), default=None),
+           "least_us_to_range_end": min(
+               (m[1] / 1e3 for m in margins), default=None)}
+    out["complete"] = (len(kern) == launched
+                       and not out["without_runtime_record"])
+    return out
+
+
 def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
     """Device time by kernel over `run()` under torch.profiler, per item,
     and the idle share against the unprofiled wall time per item. `ranges`
     names `record_function` ranges inside `run`; each is reported with its
-    host time and the device time of the kernels launched inside it."""
-    import torch
+    host time and the device time of the kernels launched inside it. With
+    the join sites' range among them, a trace that lacks a record of a
+    `sorted_join` launch of the run (`_join_trace`) cannot place it in its
+    range, and is taken again, `run()` with it, at most PROFILE_RETAKES
+    times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.coords import JOIN_RANGE
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    retakes = 0
+    while True:
+        before = kernels.sorted_join.launches
+        prof = _traced(run)
+        if JOIN_RANGE not in ranges:
+            break
+        join_trace = _join_trace(prof, kernels.sorted_join.launches - before)
+        if join_trace["complete"] or retakes == PROFILE_RETAKES:
+            break
+        retakes += 1
+        log(f"profile: the trace lost records of sorted_join launches "
+            f"({join_trace}); taken again")
     events = prof.key_averages()
     # torch.optim wraps each step in its own range ("Optimizer.step#<class>.
-    # step"), which the trace also lays on the device's timeline as an
-    # annotation spanning the step's kernels: no device work of its own
+    # step"), and the profiler its active step ("ProfilerStep#"), which the
+    # trace also lays on the device's timeline as annotations spanning the
+    # step's kernels: no device work of their own
     kern = [e for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and e.key not in ranges and not e.key.startswith("Optimizer.")]
+            and e.key not in ranges
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_items
     by_name = sorted(((e.self_device_time_total / 1e3 / n_items, e.count
                        // n_items, e.key) for e in kern), reverse=True)
@@ -856,6 +985,8 @@ def _profile(run, n_items: int, wall_ms: float, unit: str, ranges=()):
     from link_tpu_torch.tools.join_sites import range_stats
     for name in ranges:
         out.setdefault("ranges", {})[name] = range_stats(prof, name, n_items)
+    if JOIN_RANGE in ranges:
+        out["join_trace"] = dict(join_trace, retakes=retakes)
     if not busy_ms:
         log("profile: no device time in the trace (not measured)")
         return out
@@ -884,7 +1015,8 @@ def _check_join_sites(prof, unit: str, calls: float) -> None:
     if other or joins != calls or r["sites"] != calls:
         raise AssertionError(f"join sites per {unit}: {r['sites']} ranges, "
                              f"{joins} sorted_join launches (expected "
-                             f"{calls}), other device work {other}")
+                             f"{calls}), other device work {other}; the "
+                             f"trace {prof.get('join_trace')}")
 
 
 def phase_profile(res, ctx):
@@ -2677,14 +2809,13 @@ def phase_train_main(res, ctx, timed_steps=6):
     ctx.update(train_step=step, train_next=timed_steps + 1)
 
 
-def phase_train_profile(res, ctx):
+def _train_step_profile(step, wall_ms: float):
+    """One training step `step()` profiled (`_profile`, per step, against
+    `wall_ms`) with the trainer's ranges and the join sites', and its
+    device time split into forward, backward and optimizer."""
     from link_tpu_torch.sparse.coords import JOIN_RANGE
     from link_tpu_torch.train.trainer import RANGES
-    step, it = ctx["train_step"], ctx["train_next"]
-    prof = _profile(lambda: step(it), 1, min(res["train_ms_per_step"]),
-                    "step", ranges=RANGES + (JOIN_RANGE,))
-    res["train_profile"] = prof
-    _check_join_sites(prof, "step", res["train_launches"]["sorted_join"])
+    prof = _profile(step, 1, wall_ms, "step", ranges=RANGES + (JOIN_RANGE,))
     r = prof.get("ranges")
     if r and r[RANGES[0]]["device_ms"]:
         # autograd issues the backward's kernels from its own thread, so
@@ -2698,6 +2829,230 @@ def phase_train_profile(res, ctx):
         log(f"train step device time: forward {fwd:.2f} ms, backward "
             f"{bwd:.2f} ms (busy minus the other two), optimizer "
             f"{opt:.2f} ms")
+    return prof
+
+
+def phase_train_profile(res, ctx):
+    step, it = ctx["train_step"], ctx["train_next"]
+    prof = _train_step_profile(lambda: step(it),
+                               min(res["train_ms_per_step"]))
+    res["train_profile"] = prof
+    _check_join_sites(prof, "step", res["train_launches"]["sorted_join"])
+
+
+# --------------------------------------------------------------------------
+# rematerialized seg training (nn/remat.py)
+
+# (family, dtype) of each remat_train case: ELKUNet at train_main's inputs
+# and at profile_fwd's bf16 step; ELKEncoder and MinkUNet at train_main's
+REMAT_CASES = (("linkunet", "float32"), ("linkunet", "bfloat16"),
+               ("linkencoder", "float32"), ("minkunet", "float32"))
+REMAT_TIMED_STEPS = 3
+REMAT_PEAK_TIMEOUT = 300
+# the fresh-process peak runs: (case index, remat)
+REMAT_PEAK_RUNS = ((0, False), (0, True), (1, False), (1, True))
+
+
+def _remat_case(index: int, batches=None):
+    """(label, model builder remat -> model, optimizer builder, step
+    kwargs, batches) of REMAT_CASES[index]; the float32 cases train by
+    their config's recipe on `batches` (train_main's, made here when
+    None), the bfloat16 one is profile_fwd's step (SGD at lr 0.01 on its
+    two scans)."""
+    import torch
+    from link_tpu_torch.data.semantic_kitti import grid_extent
+    from link_tpu_torch.models import builder
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.tools import profile_fwd
+    from link_tpu_torch.train import trainer as T
+    from link_tpu_torch.utils.config import load_config
+    family, dtype = REMAT_CASES[index]
+    label = f"{family} {dtype}"
+    if dtype == "bfloat16":
+        ext, batches = profile_fwd.seg_inputs()
+        return (label, lambda remat: profile_fwd.seg_model(ext, "cuda",
+                                                           remat),
+                lambda model: T.make_sgd(model.parameters(), 0.01), {},
+                batches)
+    cfg = load_config(_family_config(family))
+    ext = grid_extent(0.05, batch_size=2)
+    caps = tuple(2 * c for c in DEFAULT_CAPACITIES)
+    if batches is None:
+        batches = _train_batches(2, caps[0], ext)
+    lr = builder.make_lr_schedule(cfg)(0)
+    return (f"{label} batch 2",
+            lambda remat: builder.make_model(
+                cfg, capacities=caps, dtype=dtype, device="cuda",
+                grid_extent=ext, generator=torch.Generator().manual_seed(0),
+                remat=remat),
+            lambda model: builder.make_optimizer(cfg, model.parameters(), lr),
+            {"ignore_label": cfg.criterion.ignore_index, "lr": lr}, batches)
+
+
+def _remat_peak_main(argv) -> None:
+    """One case of REMAT_PEAK_RUNS in this fresh process (argv: the case
+    index and 0 / 1 for remat): a warm step, then one step whose peak
+    memory and the resident memory before it it prints as JSON (not its
+    time: the four processes share the card)."""
+    import torch
+    from link_tpu_torch.train import trainer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, make_model, make_opt, kw, batches = _remat_case(int(argv[0]))
+    model = make_model(bool(int(argv[1])))
+    opt = make_opt(model)
+    T.seg_train_step(model, opt, batches[0], **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    T.seg_train_step(model, opt, batches[1], **kw)
+    torch.cuda.synchronize()
+    print(json.dumps({"resident_gb": base / 2**30,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 2**30}))
+
+
+def _remat_peaks() -> dict:
+    """REMAT_PEAK_RUNS, each in a fresh process, all at once (each reads
+    its own process's peak): {"<case> remat|plain": record}."""
+    procs = {}
+    for index, remat in REMAT_PEAK_RUNS:
+        key = (f"{' '.join(REMAT_CASES[index])} "
+               f"{'remat' if remat else 'plain'}")
+        procs[key] = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke._remat_peak_main(sys.argv[1:])", str(index),
+             str(int(remat))], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    out = {}
+    for key, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=REMAT_PEAK_TIMEOUT)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"remat peak {key}: exit "
+                                 f"{proc.returncode}: {stderr[-2000:]}")
+        out[key] = json.loads(stdout.splitlines()[-1])
+    return out
+
+
+def _remat_hold(index: int, batches):
+    """REMAT_CASES[index]: one step of the model without remat, two
+    repeats (fresh models of the same seed) and one step with remat, from
+    the same weights on the same batch (`dp_check.REMAT_RUNS`). Held: the
+    loss, the running statistics and the gradients by
+    `dp_check.remat_holds`, and the launches of `gather_conv`,
+    `sorted_join` and `gather_wgrad` equal (MinkUNet's replay, whose
+    policy keeps the plans only, runs the convs of its blocks again:
+    `gather_conv` plus one a K > 1 conv of its blocks). Read: each run's
+    peak memory above what was resident before it, then REMAT_TIMED_STEPS
+    steps of each model, interleaved, ms per step, then one profiled step
+    of each (device busy ms by forward, backward and optimizer, idle share
+    against the best timed step, launches)."""
+    import torch
+    from link_tpu_torch.models.blocks import (BasicConvolutionBlock,
+                                              ResidualBlock)
+    from link_tpu_torch.nn import remat as remat_lib
+    from link_tpu_torch.nn.modules import SparseConv3d
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import dp_check
+    from link_tpu_torch.train import trainer as T
+    label, make_model, make_opt, kw, batches = _remat_case(index, batches)
+    runs, models = {}, {}
+    for run in dp_check.REMAT_RUNS:
+        model = make_model(run == "remat")
+        opt = make_opt(model)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        m = T.seg_train_step(model, opt, batches[0], **kw)
+        torch.cuda.synchronize()
+        runs[run] = {
+            "launches": _launch_counts(),
+            "peak_above_resident_gb": (torch.cuda.max_memory_allocated()
+                                       - base) / 2**30,
+            "metrics": {k: float(v) for k, v in m.items()},
+            "grads": {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()},
+            "stats": dp_check.running_stats(
+                {k: v.detach().cpu() for k, v in
+                 model.state_dict().items()})}
+        if run in ("plain", "remat"):
+            models[run] = (model, opt)
+        del model, opt, m
+    rec = dp_check.remat_holds(runs)
+    model = models["remat"][0]
+    replayed = 0
+    if any(getattr(m, "remat_policy", None) == remat_lib.PLANS
+           for m in model.modules()):
+        replayed = sum(
+            1 for blk in model.modules()
+            if isinstance(blk, (ResidualBlock, BasicConvolutionBlock))
+            for mod in blk.modules() if isinstance(mod, SparseConv3d)
+            and math.prod(mod.kernel_size) > 1)
+    want = dict(runs["plain"]["launches"])
+    want["gather_conv"] += replayed
+    times = {"plain": [], "remat": []}
+    for it in range(REMAT_TIMED_STEPS):
+        for run in (("plain", "remat") if it % 2 == 0 else
+                    ("remat", "plain")):
+            model, opt = models[run]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.seg_train_step(model, opt, batches[(it + 1) % len(batches)],
+                             **kw)
+            torch.cuda.synchronize()
+            times[run].append((time.perf_counter() - t0) * 1e3)
+    profiles = {}
+    for run, (model, opt) in models.items():
+        log(f"remat_train {label}: profile of one {run} step")
+        profiles[run] = _train_step_profile(
+            lambda: T.seg_train_step(model, opt, batches[0], **kw),
+            min(times[run]))
+    rec.update({
+        "loss": {run: r["metrics"]["loss"] for run, r in runs.items()},
+        "launches": {run: {k: v for k, v in r["launches"].items() if v}
+                     for run, r in runs.items()},
+        "replayed_convs": replayed,
+        "peak_above_resident_gb": {
+            run: r["peak_above_resident_gb"] for run, r in runs.items()},
+        "ms_per_step": times, "profile": profiles})
+    log(f"remat_train {label}: loss {rec['loss']} (worst term's rel err "
+        f"{rec['loss_err']:.3g}, tol {dp_check.REMAT_TOL}); running "
+        f"statistics worst {rec['stats']}; gradient shares of their limits "
+        f"{rec['grad_share']} (the widest repeat {rec['grad_repeat']}), the "
+        f"sum for the mean planted {rec['control']}; worst entry "
+        f"{rec['grad']}; launches {rec['launches']} ({replayed} convs "
+        f"replayed); peak above resident GB "
+        f"{ {k: round(v, 3) for k, v in rec['peak_above_resident_gb'].items()} }"
+        f"; ms per step plain {[round(t, 1) for t in times['plain']]}, "
+        f"remat {[round(t, 1) for t in times['remat']]}")
+    failed = rec.pop("failed") + (
+        ["launches"] if runs["remat"]["launches"] != want else [])
+    if failed:
+        raise AssertionError(f"remat_train {label}: {failed}: {rec}")
+    del models
+    torch.cuda.empty_cache()
+    return label, rec, runs["remat"]["launches"]
+
+
+def phase_remat_train(res, ctx):
+    """Rematerialized seg training (`remat=True`, phase 14' of the
+    docstring): each of REMAT_CASES held against the same step without
+    remat (`_remat_hold`), then ELKUNet's two cases' steady step in fresh
+    processes, plain and remat, for their peak memory (`_remat_peaks`)."""
+    out, launches = {}, {}
+    for index in range(len(REMAT_CASES)):
+        label, rec, counts = _remat_hold(index, ctx["train_batches"])
+        out[label] = rec
+        _add_launches(launches, counts)
+    out["fresh_process"] = _remat_peaks()
+    log(f"remat_train in fresh processes (a warm step, then one step): "
+        f"{out['fresh_process']}")
+    out["card"] = card_line()
+    res["remat_train"] = out
+    res["remat_train_launches"] = launches
 
 
 # --------------------------------------------------------------------------
@@ -3321,7 +3676,14 @@ def _grad_errs(grads_c, grads_g):
 
 
 def phase_det_train_grad(res, ctx):
-    """One det step of the tiny VoxelNet (seed 0) on the card against the
+    """One det step of the tiny VoxelNet against the CPU
+    (`_det_train_grad`)."""
+    res["det_train_grad"] = _det_train_grad()
+
+
+def _det_train_grad(elk: bool = True, name: str = "det_train_grad"):
+    """One det step of the tiny VoxelNet (seed 0; `elk=False` the plain
+    CenterPoint model) on the card against the
     same step on the CPU (plain twins): the loss, and every gradient
     within 1e-4 of the largest gradient of all. A ReLU input at float
     noise can take either side on the two devices (and between two runs
@@ -3344,7 +3706,8 @@ def phase_det_train_grad(res, ctx):
     for run, device, force in (("cuda", "cuda", False), ("cpu", "cpu", True),
                                ("cpu unforced", "cpu", False)):
         model = VoxelNet(batch_size=2, grid_shape=(48, 48, 40),
-                         capacities=DET_TRAIN_TINY_CAPS, device=device,
+                         capacities=DET_TRAIN_TINY_CAPS, elk=elk,
+                         device=device,
                          generator=torch.Generator().manual_seed(0))
         opt = DT.make_one_cycle_adam(model, *schedules.one_cycle(1e-3, 100))
         with ReluMasks(force=masks if force else None) as relus:
@@ -3363,15 +3726,15 @@ def phase_det_train_grad(res, ctx):
     worst = max(errs, key=errs.get)
     leaf_worst = max(leaf_errs, key=leaf_errs.get)
     free_worst = max(free_errs, key=free_errs.get)
-    res["det_train_grad"] = {"loss_cpu": loss_c, "loss_cuda": loss_g,
-                             "worst": worst, "worst_rel_err": errs[worst],
-                             "leaf_worst": leaf_worst,
-                             "leaf_worst_rel_err": leaf_errs[leaf_worst],
-                             "leaves": len(errs), "largest_gradient": top,
-                             "relu_calls": len(masks), "relu_flips": flips,
-                             "unforced_worst": free_worst,
-                             "unforced_worst_rel_err": free_errs[free_worst]}
-    log(f"det_train_grad: loss cpu {loss_c:.6f} card {loss_g:.6f}; "
+    rec = {"loss_cpu": loss_c, "loss_cuda": loss_g,
+           "worst": worst, "worst_rel_err": errs[worst],
+           "leaf_worst": leaf_worst,
+           "leaf_worst_rel_err": leaf_errs[leaf_worst],
+           "leaves": len(errs), "largest_gradient": top,
+           "relu_calls": len(masks), "relu_flips": flips,
+           "unforced_worst": free_worst,
+           "unforced_worst_rel_err": free_errs[free_worst]}
+    log(f"{name}: loss cpu {loss_c:.6f} card {loss_g:.6f}; "
         f"{len(errs)} gradients, worst {errs[worst]:.3g} of the largest "
         f"gradient {top:.4g} ({worst}; tol {TRAIN_GRAD_REL_TOL}); against "
         f"its own leaf's largest {leaf_errs[leaf_worst]:.3g} "
@@ -3384,9 +3747,10 @@ def phase_det_train_grad(res, ctx):
             or abs(loss_c - loss_g) > 1e-4 * abs(loss_c)
             or not errs[worst] < TRAIN_GRAD_REL_TOL
             or any(share >= DET_TRAIN_FLIP for _, _, share in flips)):
-        raise AssertionError(f"det_train_grad: loss {loss_c} vs {loss_g}, "
+        raise AssertionError(f"{name}: loss {loss_c} vs {loss_g}, "
                              f"worst gradient {worst} rel err {errs[worst]}, "
                              f"ReLU flips {flips}")
+    return rec
 
 
 def phase_det_train_golden(res, ctx):
@@ -3602,7 +3966,8 @@ def phase_det_train_main(res, ctx, timed_steps=6):
         raise AssertionError(f"det train launches {launches}, conv calls "
                              f"{split.calls}; expected {want_launch} and "
                              f"{want}")
-    ctx.update(det_train_step=step, det_train_next=timed_steps + 2)
+    ctx.update(det_train_step=step, det_train_next=timed_steps + 2,
+               det_train_batches=batches)
 
 
 def phase_det_train_profile(res, ctx):
@@ -3795,9 +4160,23 @@ def phase_dp_train(res, ctx):
     """Data parallelism on the card (phase 14g2 of the docstring)."""
     import torch
     from link_tpu_torch.tools import dp_check
-    out = dp_check.check(("seg", "det"), DP_RANKS, "cuda:0")
+    out = dp_check.check(("seg", "det", "seg_syncbn_remat"), DP_RANKS,
+                         "cuda:0")
     total = {}
     rec = {"ranks_s": out["ranks_s"]}
+    remat = out["seg_syncbn_remat"]
+    for r in out["ranks"]:
+        _add_launches(total, r["jobs"]["seg_syncbn_remat"]["remat"]
+                      ["launches"])
+    rec["seg_syncbn_remat"] = dict(remat)
+    log(f"dp_train seg SyncBN remat step vs the plain SyncBN step, "
+        f"{DP_RANKS} ranks on cuda:0: loss err {remat['loss_err']:.3g}, "
+        f"running statistics {remat['stats']}, gradient shares "
+        f"{remat['grad_share']} (the sum for the mean planted "
+        f"{remat['control']}), all-reduce calls per rank (plain, repeat, "
+        f"remat) {remat['all_reduce_calls']}, ms {remat['ms']}, peak GB "
+        f"{remat['peak_mem_gb']}; launches of the remat step "
+        f"{ {k: v for k, v in remat['launches'].items() if v} }")
     for part in ("seg", "det"):
         ranks = [r["jobs"][part] for r in out["ranks"]]
         for r in ranks:
@@ -3861,6 +4240,126 @@ def phase_dp_train(res, ctx):
     rec["cli"] = cli
     rec["card"] = card_line()
     res["dp_train"] = rec
+
+
+def phase_det_plain(res, ctx, rounds=3):
+    """The plain CenterPoint VoxelNet (`elk=False`, backbone
+    `SpMiddleResNetFHD`) at full width, seed-0 weights, det_test's
+    capacities (163,840 / 81,920 / 40,960 / 20,480): the f32 forward and
+    decode card against CPU (`_card_cpu_hold`) on the hold frame, whose
+    every level fits its capacity; under a user's TF32 flags bf16 forward
+    + decode + device NMS on the det frames (launches against the sparse
+    levels' plans and convs, frames/s, profile, peak memory); one f32
+    training step of the tiny plain VoxelNet card against CPU
+    (`_det_train_grad`)."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.inference import DEFAULT_TEST_CFG
+    from link_tpu_torch.models.center_head import decode_boxes, device_nms
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.tools import det_test
+
+    cfg = dict(DEFAULT_TEST_CFG)
+    model = _det_model(elk=False)
+    hold, _ = _card_cpu_hold(
+        "det_plain hold", model, _det_model(elk=False, device="cpu"),
+        dp.collate_det([_hold_frame()[0]], det_test.CAPACITY), cfg)
+    del model
+    frames = ctx["det_batches"]
+    model = _det_model(elk=False, dtype="bfloat16")
+    ncls = model.bbox_head.num_classes
+
+    def fwd(b):
+        with torch.inference_mode():
+            return device_nms(decode_boxes(
+                model(*dp.det_inputs(b, "cuda")), cfg, ncls), cfg)
+    out = _variant_pass("det plain bf16 forward + decode + device NMS",
+                        model, frames, fwd, rounds)
+    if (out["launches"]["rotated_nms"]
+            != len(frames) * kernels.ROTATED_NMS_LAUNCHES):
+        raise AssertionError(f"det plain: rotated_nms launches "
+                             f"{out['launches']['rotated_nms']}")
+    del model, fwd
+    torch.cuda.empty_cache()
+    out["hold"] = hold
+    out["train_grad"] = _det_train_grad(elk=False, name="det_plain_train_grad")
+    out["card"] = card_line()
+    res["det_plain"] = out
+    res["det_plain_launches"] = dict(out["launches"])
+
+
+DET_BF16_STEPS = 10
+
+
+def phase_det_train_bf16(res, ctx):
+    """bf16 det training (phase 14e' of the docstring): CenterPoint-ELKv3
+    with bfloat16 compute (float32 parameters and Adam state) and in
+    float32, each DET_BF16_STEPS steps of one-cycle Adam (lr_max 1e-3 over
+    those steps, tests/test_det_train_bf16.py's) from the seed-0 weights
+    on det_train_main's two batches in turn, TF32 off: the JAX test's
+    bounds (step-0 losses within 3%, the median relative gap below 0.25,
+    the last below 0.3, each curve ending below 0.7 of its start), ms per
+    step, peak memory above what was resident, the launches of one
+    step."""
+    import torch
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.train import det_trainer as DT
+    from link_tpu_torch.train import schedules
+
+    batches = ctx["det_train_batches"]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = VoxelNet(batch_size=2, capacities=DET_TRAIN_CAPS, dtype=dtype,
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        opt = DT.make_one_cycle_adam(model, *schedules.one_cycle(
+            1e-3, DET_BF16_STEPS))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for t in range(DET_BF16_STEPS):
+            if t == 1:
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(float(DT.det_train_step(
+                model, opt, batches[t % len(batches)])["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if t == 1:
+                launches = _launch_counts()
+        out[dtype] = {"losses": losses, "ms_per_step": times,
+                      "peak_above_resident_gb": (
+                          torch.cuda.max_memory_allocated() - base) / 2**30,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "params_f32": all(p.dtype == torch.float32
+                                        for p in model.parameters())}
+        del model, opt
+        torch.cuda.empty_cache()
+    l32 = np.asarray(out["float32"]["losses"])
+    l16 = np.asarray(out["bfloat16"]["losses"])
+    rel = np.abs(l16 - l32) / np.maximum(np.abs(l32), 1e-6)
+    out.update(rel=rel.tolist(), card=card_line())
+    res["det_train_bf16"] = out
+    res["det_train_bf16_launches"] = out["bfloat16"]["launches"]
+    log(f"det_train_bf16: losses f32 {np.round(l32, 4).tolist()}, bf16 "
+        f"{np.round(l16, 4).tolist()}; relative gaps "
+        f"{np.round(rel, 4).tolist()} (step 0 tol 0.03, median "
+        f"{float(np.median(rel)):.4f} tol 0.25, last tol 0.3); ms per step "
+        f"f32 {[round(t, 1) for t in out['float32']['ms_per_step']]}, bf16 "
+        f"{[round(t, 1) for t in out['bfloat16']['ms_per_step']]}; peak "
+        f"above resident GB f32 "
+        f"{out['float32']['peak_above_resident_gb']:.2f}, bf16 "
+        f"{out['bfloat16']['peak_above_resident_gb']:.2f}; launches of a "
+        f"bf16 step {out['bfloat16']['launches']}")
+    if not (np.isfinite(l32).all() and np.isfinite(l16).all()
+            and rel[0] < 0.03 and np.median(rel) < 0.25 and rel[-1] < 0.3
+            and l32[-1] < 0.7 * l32[0] and l16[-1] < 0.7 * l16[0]
+            and out["bfloat16"]["params_f32"]
+            and min(out["bfloat16"]["launches"].get(k, 0)
+                    for k in TRAIN_KERNELS) > 0):
+        raise AssertionError(f"det_train_bf16: {out}")
 
 
 def _launch_counts():
@@ -4086,16 +4585,18 @@ DET_CONFIG = os.path.join(HERE, "configs", "nusc", "voxelnet",
                           "elkv3.py")
 
 
-def _det_model(level=None, dcn=False, dtype="float32"):
-    """CenterPoint-ELKv3 with seed-0 weights on the card, eval mode, batch
-    1 at det_test's capacity."""
+def _det_model(level=None, dcn=False, dtype="float32", elk=True,
+               device="cuda"):
+    """CenterPoint-ELKv3 (`elk=False`: the plain CenterPoint VoxelNet) with
+    seed-0 weights, eval mode, batch 1 at det_test's capacity."""
     import torch
     from link_tpu_torch.models.voxelnet import VoxelNet
     from link_tpu_torch.tools import det_test
     c = det_test.CAPACITY
     return VoxelNet(batch_size=1, grid_shape=det_test.GRID,
-                    capacities=(c, c // 2, c // 4, c // 8), dtype=dtype,
-                    dcn_head=dcn, dense_from_level=level, device="cuda",
+                    capacities=(c, c // 2, c // 4, c // 8), elk=elk,
+                    dtype=dtype, dcn_head=dcn, dense_from_level=level,
+                    device=device,
                     generator=torch.Generator().manual_seed(0)).eval()
 
 
@@ -4616,17 +5117,31 @@ def _waymo_hold(res, model, batch, cfg, kernels):
     too, boxes but the yaw likewise, the yaw modulo 2 pi; masks equal but
     for scores within 1e-5 of the threshold. Returns (the recorder, the
     card's decode outputs)."""
-    import torch
-    from link_tpu_torch.data import det_pipeline as dp
     from link_tpu_torch.models import builder
-    from link_tpu_torch.models.center_head import decode_boxes
-    ncls = [len(t) for t in model.tasks]
     cpu = builder.build_detector(dict(WAYMO_DET_CFG, tasks=model.tasks),
                                  device="cpu")
+    rec = ShapeRecorder()
+    res["waymo_hold"], outs = _card_cpu_hold("waymo hold", model, cpu,
+                                             batch, cfg, card_ctx=rec)
+    return rec, outs
+
+
+def _card_cpu_hold(name, model, cpu, batch, cfg, card_ctx=None):
+    """The f32 forward and decode of `batch`, TF32 off, on the card
+    (`model`, its forward inside `card_ctx` where given) against the CPU
+    (`cpu`, the same architecture, given the card's weights; plain twins):
+    every head map within DET_GOLDEN_REL_TOL; decoded scores too, boxes
+    but the yaw likewise, the yaw modulo 2 pi; masks equal but for scores
+    within 1e-5 of the threshold. Returns (the readings, the card's decode
+    outputs)."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.models.center_head import decode_boxes
+    ncls = [len(t) for t in model.tasks]
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu.eval()
     with torch.inference_mode():
-        with ShapeRecorder() as rec:
+        with card_ctx or contextlib.nullcontext():
             got = model(*dp.det_inputs(batch, "cuda"))
         outs = decode_boxes(got, cfg, ncls)
         t_card = time.perf_counter()
@@ -4649,24 +5164,21 @@ def _waymo_hold(res, model, batch, cfg, kernels):
                                2 * math.pi) - math.pi
         errs[f"task {t} decoded yaw"] = float(dyaw.abs().max())
         if not torch.equal(la, lb):
-            raise AssertionError(f"waymo hold task {t}: labels differ")
+            raise AssertionError(f"{name} task {t}: labels differ")
         diff = ma != mb
         flips += int(diff.sum())
         if bool((diff & ((sb - thr).abs() >= 1e-5)).any()):
-            raise AssertionError(f"waymo hold task {t}: a mask differs away "
+            raise AssertionError(f"{name} task {t}: a mask differs away "
                                  "from the score threshold")
     worst = max(errs, key=errs.get)
-    res["waymo_hold"] = {"errs": errs, "worst": worst,
-                         "worst_rel_err": errs[worst], "mask_flips": flips,
-                         "cpu_s": t_cpu}
-    log(f"waymo hold: f32 forward + decode, card vs CPU, {len(errs)} "
+    log(f"{name}: f32 forward + decode, card vs CPU, {len(errs)} "
         f"readings, worst {errs[worst]:.3g} ({worst}; tol "
         f"{DET_GOLDEN_REL_TOL}), mask flips at the threshold {flips}; the "
         f"CPU forward {t_cpu:.1f} s")
     if not errs[worst] < DET_GOLDEN_REL_TOL:
-        raise AssertionError(f"waymo hold: {worst} rel err {errs[worst]}")
-    del cpu, want, outs_cpu
-    return rec, outs
+        raise AssertionError(f"{name}: {worst} rel err {errs[worst]}")
+    return {"errs": errs, "worst": worst, "worst_rel_err": errs[worst],
+            "mask_flips": flips, "cpu_s": t_cpu}, outs
 
 
 def _waymo_shapes(rec, kernels, role, iters=5):
@@ -5222,13 +5734,69 @@ def _unsorted_warp_share(kernels, base) -> float:
     return float((w[:, 1:] < w[:, :-1]).any(1).float().mean())
 
 
+def _bf16_train_recorders(det_batches) -> dict:
+    """ShapeRecorders of one bf16 det training step (det_train_bf16's
+    model, seed-0 weights, on `det_batches[0]`) and one bf16 remat ELKUNet
+    step (remat_train's profile_fwd case)."""
+    import torch
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.train import det_trainer as DT
+    from link_tpu_torch.train import schedules
+    from link_tpu_torch.train import trainer as T
+    recorders = {}
+    model = VoxelNet(batch_size=2, capacities=DET_TRAIN_CAPS,
+                     dtype="bfloat16", device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    opt = DT.make_one_cycle_adam(model, *schedules.one_cycle(
+        1e-3, DET_BF16_STEPS))
+    with ShapeRecorder() as recorders["det_train bf16"]:
+        DT.det_train_step(model, opt, det_batches[0])
+    _, make_model, make_opt, kw, batches = _remat_case(
+        REMAT_CASES.index(("linkunet", "bfloat16")))
+    model = make_model(True)
+    with ShapeRecorder() as recorders["remat_train bf16"]:
+        T.seg_train_step(model, make_opt(model), batches[0], **kw)
+    torch.cuda.synchronize()
+    return recorders
+
+
+def _recorded_cases(kernels, recorders, iters):
+    """(gather_conv, gather_wgrad, window_conv) cases at every shape that
+    the `recorders` (path -> ShapeRecorder) hold, each against its twin;
+    each work list the paths handed `gather_wgrad` equal to its plain
+    twin."""
+    import torch
+    torch.cuda.synchronize()
+    conv_cases, wgrad_cases, window_cases = [], [], []
+    for path, rec in recorders.items():
+        for feats, idx, weight in rec.conv.values():
+            conv_cases.append(_conv_case(kernels, feats, idx, weight, iters,
+                                         role=path))
+        for feats, plan, weight in rec.window.values():
+            window_cases.append(dict(_window_case(kernels, feats, plan,
+                                                  weight, iters), role=path))
+        for feats, g, bwd, work in rec.wgrad.values():
+            twin = kernels.wgrad_work_list_plain(bwd)
+            total = int(twin.tap_off[-1])
+            if work is not None and not (
+                    torch.equal(work.tap_off, twin.tap_off)
+                    and torch.equal(work.hit_i[:total], twin.hit_i[:total])
+                    and torch.equal(work.hit_j[:total], twin.hit_j[:total])):
+                raise AssertionError(f"{path}: a work list differs from its "
+                                     "plain twin")
+            wgrad_cases.append(_wgrad_case(kernels, feats, g, bwd, iters,
+                                           work, role=path))
+    return conv_cases, wgrad_cases, window_cases
+
+
 def phase_path_shapes(res, ctx, iters=10):
-    """`gather_conv` and `gather_wgrad` against their twins, bit-equal over
-    two runs and timed, at every distinct shape that one more seg pass, det
-    pass, seg training step and det training step give them (their inputs
-    as the paths make them;
+    """`gather_conv`, `gather_wgrad` and `window_conv` against their twins,
+    bit-equal over two runs and timed, at every distinct shape and dtype
+    that one more seg pass, det pass, seg training step, det training
+    step, bf16 det training step (det_train_bf16's) and bf16 remat ELKUNet
+    step (remat_train's) give them (their inputs as the paths make them;
     recorded here, so that the earlier phases' counts, times and peak memory
-    are the paths' own), and each work list of the step against its plain
+    are the paths' own), and each work list of the steps against its plain
     twin. Then one more pass of each seg family: `gather_conv` at every
     (K, Ci, Co, dtype) that no earlier path gives it, and `sorted_join` at
     every call of the families' new join sites, exactly."""
@@ -5245,34 +5813,34 @@ def phase_path_shapes(res, ctx, iters=10):
         ctx["train_step"](ctx["train_next"] + 1)
     with ShapeRecorder() as recorders["det_train"]:
         ctx.pop("det_train_step")(ctx["det_train_next"] + 1)
+    recorders.update(_bf16_train_recorders(ctx["det_train_batches"]))
     fam_conv, fam_join = {}, {}
     for name, (_, fmodel) in ctx["families"].items():
         with (torch.inference_mode(), ShapeRecorder() as fam_conv[name],
               JoinRecorder() as fam_join[name]):
             fmodel(fresh(scans[0]))
     torch.cuda.synchronize()
-    conv_cases, wgrad_cases = [], []
-    for path, rec in recorders.items():
-        for feats, idx, weight in rec.conv.values():
-            conv_cases.append(_conv_case(kernels, feats, idx, weight, iters,
-                                         role=path))
-        for feats, g, bwd, work in rec.wgrad.values():
-            twin = kernels.wgrad_work_list_plain(bwd)
-            total = int(twin.tap_off[-1])
-            if work is not None and not (
-                    torch.equal(work.tap_off, twin.tap_off)
-                    and torch.equal(work.hit_i[:total], twin.hit_i[:total])
-                    and torch.equal(work.hit_j[:total], twin.hit_j[:total])):
-                raise AssertionError(f"{path}: a work list differs from its "
-                                     "plain twin")
-            wgrad_cases.append(_wgrad_case(kernels, feats, g, bwd, iters,
-                                           work, role=path))
+    conv_cases, wgrad_cases, window_cases = _recorded_cases(
+        kernels, recorders, iters)
     res["path_conv_cases"] = conv_cases
     res["path_wgrad_cases"] = wgrad_cases
-    log(f"path shapes: gather_conv at {len(conv_cases)} and gather_wgrad at "
-        f"{len(wgrad_cases)} distinct shapes of the four paths, each within "
-        "its tolerance and bit-equal over two runs; "
+    res["path_window_cases"] = window_cases
+    log(f"path shapes: gather_conv at {len(conv_cases)}, gather_wgrad at "
+        f"{len(wgrad_cases)} and window_conv at {len(window_cases)} distinct "
+        f"shapes of the {len(recorders)} paths, each within its tolerance "
+        "and bit-equal over two runs; "
         f"{len(CAPTURE_FAILED)} failed graph captures so far")
+    bf16 = lambda keys, at: any(k[at] == "torch.bfloat16"  # noqa: E731
+                                for k in keys)
+    for path in ("det_train bf16", "remat_train bf16"):
+        rec = recorders[path]
+        if not (bf16(rec.conv, 3) and bf16(rec.wgrad, 3)):
+            raise AssertionError(f"{path}: recorded no bf16 gather_conv or "
+                                 "no bf16 gather_wgrad")
+    if not (bf16(recorders["det_train bf16"].window, 3)
+            and recorders["det_train"].window):
+        raise AssertionError("the det training steps recorded no "
+                             "window_conv of their dtype")
 
     def kco(key):                     # (K, Ci, Co, dtype) of a recorder key
         return (key[1][0], key[0][1], key[2][-1], key[3])
@@ -5502,6 +6070,9 @@ MAIN_PATHS = {"seg": "launches",
               "waymo": "waymo_launches",
               "tracking_tools": "tracking_tools_launches",
               "train": "train_launches", "det_train": "det_train_launches",
+              "remat_train": "remat_train_launches",
+              "det_plain": "det_plain_launches",
+              "det_train_bf16": "det_train_bf16_launches",
               "dp_train": "dp_train_launches",
               "dp_train_cli": "dp_train_cli_launches",
               "probes": "probe_launches"}
@@ -5520,9 +6091,11 @@ def kernels_line(res):
     the four `det_test --two-stage` runs, one bf16 pass of the Waymo val
     frames with device NMS and the Waymo training steps, the tracking
     tools' det_test run and profile_fwd, one train step, one training
-    step of each other seg family, one det train step, the data-parallel
-    seg and det steps on each of 2 ranks and the 2-rank seg_train and
-    det_train runs, one run of the probe tool), and the error, times and bound of `KERNEL_CASE`. A kernel
+    step of each other seg family, one det train step, the remat steps of
+    remat_train, one bf16 pass of the plain CenterPoint VoxelNet over the
+    2 det frames, one bf16 det train step, the data-parallel seg and det
+    steps on each of 2 ranks with the SyncBN remat steps and the 2-rank
+    seg_train and det_train runs, one run of the probe tool), and the error, times and bound of `KERNEL_CASE`. A kernel
     without a case or without a launch on any main path fails the
     script."""
     from link_tpu_torch.ops import kernels
@@ -5576,13 +6149,13 @@ def main() -> int:
                   phase_det_nms_kernels, phase_det_serve,
                   phase_det_flip_golden, phase_det_tta_main,
                   phase_train_kernels, phase_train_grad, phase_train_golden,
-                  phase_train_main, phase_train_profile,
+                  phase_train_main, phase_train_profile, phase_remat_train,
                   phase_seg_families_train, phase_seg_families_train_grad,
                   phase_seg_files, phase_det_train_kernels,
                   phase_det_train_grad, phase_det_train_golden,
                   phase_det_train_main,
                   phase_det_train_profile, phase_det_train_cli,
-                  phase_dp_train, phase_det_files, phase_det_dense, phase_det_dcn,
+                  phase_det_train_bf16, phase_det_plain, phase_dp_train, phase_det_files, phase_det_dense, phase_det_dcn,
                   phase_det_two_stage, phase_waymo, phase_tracking_tools,
                   phase_path_shapes, phase_probes):
         t0 = time.perf_counter()

@@ -9,12 +9,13 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..nn import remat
 from ..nn.modules import SparseBatchNorm, SparseConv3d, SparseReLU
 from ..sparse.tensor import SparseTensor, cat
 
 
 class BasicConvolutionBlock(nn.Module):
-    """Conv3d + BN + ReLU."""
+    """Conv3d + BN + ReLU; rematerializable (`nn/remat.py`)."""
 
     def __init__(self, inc: int, outc: int, ks: int = 3, stride: int = 1,
                  dilation: int = 1, out_capacity: Optional[int] = None,
@@ -27,6 +28,7 @@ class BasicConvolutionBlock(nn.Module):
             SparseBatchNorm(outc, device=device),
             SparseReLU())
 
+    @remat.rematerializable
     def forward(self, x: SparseTensor) -> SparseTensor:
         return self.net(x)
 
@@ -48,7 +50,8 @@ class BasicDeconvolutionBlock(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Two convs + BN with a projection shortcut when the shape changes."""
+    """Two convs + BN with a projection shortcut when the shape changes;
+    rematerializable (`nn/remat.py`)."""
 
     def __init__(self, inc: int, outc: int, ks: int = 3, stride: int = 1,
                  dilation: int = 1, device=None,
@@ -70,6 +73,7 @@ class ResidualBlock(nn.Module):
                              generator=generator),
                 SparseBatchNorm(outc, device=device))
 
+    @remat.rematerializable
     def forward(self, x: SparseTensor) -> SparseTensor:
         y = self.net(x)
         sc = self.downsample(x)

@@ -1,11 +1,12 @@
-"""Name-dispatched factories for the seg stack (model, optimizer and lr
-schedule from a config; reference: segmentation/core/builder.py:16-124)
+"""Name-dispatched factories for the seg stack (dataset, model, criterion,
+optimizer and lr schedule from a config; reference: segmentation/core/builder.py:16-124)
 and the registry-driven detection builders (reference:
 detection/det3d/models/builder.py + registry.py). Counterpart of
 `link_tpu/models/builder.py`."""
 
 from __future__ import annotations
 
+import functools
 import inspect
 import math
 from typing import Optional, Tuple
@@ -14,7 +15,7 @@ import torch
 
 from ..data.semantic_kitti import SemanticKITTI, SyntheticSemanticKITTI
 from ..nn.modules import sync_batch_norms
-from ..train import schedules
+from ..train import losses, schedules
 from ..train.trainer import make_sgd
 from ..utils import registry as R
 from .linkencoder import ELKEncoder
@@ -31,21 +32,43 @@ R.DATASETS.register_module(SemanticKITTI)
 R.DATASETS.register_module(SyntheticSemanticKITTI)
 
 
+def make_dataset(cfg, split: str = "train"):
+    """The config's seg dataset (`dataset.name`): the SemanticKITTI reader
+    at `dataset.root`, or "synthetic" scans (`dataset.length`, 64 when the
+    config has none)."""
+    name = cfg.dataset.name
+    if name == "semantic_kitti":
+        return SemanticKITTI(root=cfg.dataset.root, split=split,
+                             voxel_size=cfg.dataset.voxel_size,
+                             num_points=cfg.dataset.num_points)
+    if name == "synthetic":
+        return SyntheticSemanticKITTI(
+            length=cfg.dataset.get("length", 64), split=split,
+            voxel_size=cfg.dataset.voxel_size,
+            num_points=cfg.dataset.num_points)
+    raise NotImplementedError(name)
+
+
 def make_model(cfg, capacities: Optional[Tuple[int, ...]] = None,
                dtype: str = "float32", device="cuda",
                generator: Optional[torch.Generator] = None,
-               grid_extent=None, bn_group=None) -> torch.nn.Module:
+               grid_extent=None, bn_group=None,
+               remat: bool = False) -> torch.nn.Module:
     """The config's seg model. `grid_extent` reaches the models with ELK
     blocks (their dense aux path); SPVCNN runs float32 only, as the JAX
     model; its dropout rate is `model.dropout_rate` (0.3, the reference's,
     when the config has none) and is seeded from `generator`'s seed.
     `bn_group`, a process group, makes every BatchNorm a SyncBN over it
-    (JAX's `bn_axis`; off by default)."""
+    (JAX's `bn_axis`; off by default). `remat` reaches ELKUNet, ELKEncoder
+    and MinkUNet (their blocks rematerialized in training, `nn/remat.py`),
+    not SPVCNN, as in the JAX builder."""
     return sync_batch_norms(_make_model(cfg, capacities, dtype, device,
-                                        generator, grid_extent), bn_group)
+                                        generator, grid_extent, remat),
+                            bn_group)
 
 
-def _make_model(cfg, capacities, dtype, device, generator, grid_extent):
+def _make_model(cfg, capacities, dtype, device, generator, grid_extent,
+                remat):
     m = cfg.model
     caps = tuple(capacities or m.get("capacities", DEFAULT_CAPACITIES))
     num_classes = cfg.data.num_classes
@@ -55,18 +78,19 @@ def _make_model(cfg, capacities, dtype, device, generator, grid_extent):
     if name == "linkunet":
         return ELKUNet(num_classes=num_classes, cr=cr, r=m.r, s=m.s,
                        groups=m.groups, baseop=m.base_op, dtype=dtype,
-                       grid_extent=grid_extent, **kw)
+                       grid_extent=grid_extent, remat=remat, **kw)
     if name == "linkencoder":
         return ELKEncoder(num_classes=num_classes, cr=cr, r=m.r, s=m.s,
                           groups=m.groups, baseop=m.base_op, dtype=dtype,
-                          grid_extent=grid_extent, **kw)
+                          grid_extent=grid_extent, remat=remat, **kw)
     if name == "minkunet":
         # the default (64,) * 9 is the reference's actual plan
         # (minkunet.py:98); model.channels selects another, e.g. the stock
         # SPVNAS [32, 32, 64, 128, ...]
         if "channels" in m:
             kw["channels"] = tuple(int(c) for c in m.channels)
-        return MinkUNet(num_classes=num_classes, cr=cr, dtype=dtype, **kw)
+        return MinkUNet(num_classes=num_classes, cr=cr, dtype=dtype,
+                        remat=remat, **kw)
     if name == "spvcnn":
         if dtype != "float32":
             raise ValueError("SPVCNN runs float32 only")
@@ -85,6 +109,24 @@ def _make_model(cfg, capacities, dtype, device, generator, grid_extent):
             SEG_MODELS,
             default_args={"num_classes": num_classes, "capacities": caps,
                           "device": device})
+    raise NotImplementedError(name)
+
+
+def make_criterion(cfg):
+    """The config's seg loss (`criterion.name`, `criterion.ignore_index`):
+    crit(logits, labels, valid) -> (loss, {name: term}); "cross_entropy"
+    alone, or "lovasz_softmax", the reference's CE + Lovász
+    (`losses.segmentation_loss`)."""
+    name = cfg.criterion.name
+    ignore = cfg.criterion.get("ignore_index", 0)
+    if name == "cross_entropy":
+        def crit(logits, labels, valid):
+            ce = losses.cross_entropy(logits, labels, valid, ignore)
+            return ce, {"loss_ce": ce}
+        return crit
+    if name == "lovasz_softmax":
+        return functools.partial(losses.segmentation_loss,
+                                 ignore_index=ignore)
     raise NotImplementedError(name)
 
 

@@ -18,6 +18,9 @@ On a DenseGrid the cells' grid coordinates stand in for the rows' coords,
 the LayerNorm'd input is re-zeroed at the empty cells, and voxel_to_aux /
 aux_to_voxel collapse to block sums and an r^3 box sum over the block grid,
 weighted by the occupied cells per block (`sparse/dense_grid.py`).
+
+The block is rematerializable (`nn/remat.py`), as the seg models' ELK
+blocks are under `remat=True`.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..nn import remat
 from ..nn.modules import Linear, SparseConv3d, SparseLayerNorm
 from ..ops.elk import aux_to_voxel, elk_aux_window_dense, use_dense_aux, voxel_to_aux
 from ..sparse.dense_grid import (DenseGrid, block_broadcast, block_pool,
@@ -66,6 +70,7 @@ class ELKBlock(nn.Module):
         self.norm = SparseLayerNorm(inc, device=device)
         self.norm_local = SparseLayerNorm(inc, device=device)
 
+    @remat.rematerializable
     def forward(self, st: SparseTensor, s: int, r: int) -> SparseTensor:
         dense = isinstance(st, DenseGrid)
         f_input = self.pre_mix(st.feats)

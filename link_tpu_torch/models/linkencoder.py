@@ -1,7 +1,7 @@
 """LinK encoder-only segmentation model (reference linkencoder.py:188-389,
 ELKEncoder).
 
-PyTorch counterpart of `link_tpu/models/linkencoder.py`, inference path.
+PyTorch counterpart of `link_tpu/models/linkencoder.py`.
 The same stem and 4-level ELK encoder as ELKUNet (`ELKSegEncoder`), but no
 transposed-conv decoder: every level is broadcast back to the stem's coords
 with `upsample_voxel` (nearest-ancestor join), the 5 scales are concatenated
@@ -10,7 +10,8 @@ along channels and classified by a grouped 1x1 conv head (groups=5) -> 120
 reads coords / stride (linkencoder.py:165). The reference also defines the
 decoder `up1`-`up4`, which its forward never calls; the port leaves them
 out, and `utils.convert.load_reference_state_dict` drops their keys by name
-(`UNUSED_REFERENCE_KEYS`).
+(`UNUSED_REFERENCE_KEYS`). `remat=True` rematerializes the encoder's blocks
+as ELKUNet's (`linkunet.REMAT_BLOCKS`, the plans and conv outputs kept).
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..nn.remat import PLANS_AND_CONV_OUTPUTS, set_remat
 from ..ops.elk import upsample_voxel
 from ..sparse.tensor import SparseTensor
-from .linkunet import DEFAULT_CAPACITIES, ELKSegEncoder
+from .linkunet import DEFAULT_CAPACITIES, REMAT_BLOCKS, ELKSegEncoder
 
 
 class GroupedPointConv(nn.Module):
@@ -67,7 +69,8 @@ class ELKEncoder(ELKSegEncoder):
                  aux_capacities: Optional[Tuple[int, ...]] = None,
                  dtype: str = "float32",
                  grid_extent: Optional[Tuple[int, int, int, int]] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 remat: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__(cr, r, s, groups, baseop, in_channels, capacities,
                          aux_capacities, dtype, grid_extent,
                          normalize_coords=True, device=device,
@@ -77,6 +80,8 @@ class ELKEncoder(ELKSegEncoder):
             GroupedPointConv(self.cs[8] * 5, 120, groups=5, **kw),
             nn.ReLU(),
             GroupedPointConv(120, num_classes, groups=1, **kw))
+        if remat:
+            set_remat(self, REMAT_BLOCKS, PLANS_AND_CONV_OUTPUTS)
 
     def forward(self, x: SparseTensor) -> torch.Tensor:
         x0, x1, x2, x3, x4 = self.encode(x)

@@ -1,6 +1,6 @@
 """LinK U-Net segmentation model (reference linkunet.py:188-385, ELKUNet).
 
-PyTorch counterpart of `link_tpu/models/linkunet.py`, inference path.
+PyTorch counterpart of `link_tpu/models/linkunet.py`.
 MinkUNet topology with a parallel ELK branch at each of the 4 encoder
 levels: x_l = ReLU(stage_tail(stage(x)) + elk_tail(ELK(x, stride*s, r))).
 The stem and that encoder (`ELKSegEncoder`) are ELKEncoder's too
@@ -11,6 +11,9 @@ checkpoint loads with `load_state_dict(strict=True)`.
 Static `capacities` bound the voxel count per stride level (index 0 =
 stride 1 ... index 4 = stride 16); `aux_capacities` bound ELK aux cells per
 level (default: the next level's capacity, as in the JAX model).
+`remat=True` rematerializes the blocks of `REMAT_BLOCKS` in training under
+the JAX model's policy, which keeps the plans and every conv output
+(`nn/remat.py`).
 """
 
 from __future__ import annotations
@@ -21,10 +24,17 @@ import torch
 from torch import nn
 
 from ..nn.modules import Linear, SparseBatchNorm, SparseConv3d, SparseReLU
+from ..nn.remat import PLANS_AND_CONV_OUTPUTS, set_remat
 from ..sparse.tensor import SparseTensor
 from .blocks import (BasicConvolutionBlock, ResidualBlock, add_decoder,
                      decoder_level)
 from .elk import ELKBlock
+
+# the blocks that `remat=True` rematerializes, as the JAX models wrap them
+# in nn.remat (linkunet.py, linkencoder.py): every residual block (the
+# stages' and the decoder's), every down block and every ELK block; the
+# stem, the tails and the transposed convs are not
+REMAT_BLOCKS = (ResidualBlock, BasicConvolutionBlock, ELKBlock)
 
 # Per-scan voxel capacities by stride level (1, 2, 4, 8, 16) for the 80k
 # training cap (the JAX package's tools/calibrate_capacities.py).
@@ -108,7 +118,8 @@ class ELKUNet(ELKSegEncoder):
                  aux_capacities: Optional[Tuple[int, ...]] = None,
                  dtype: str = "float32",
                  grid_extent: Optional[Tuple[int, int, int, int]] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 remat: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__(cr, r, s, groups, baseop, in_channels, capacities,
                          aux_capacities, dtype, grid_extent, device=device,
                          generator=generator)
@@ -116,6 +127,8 @@ class ELKUNet(ELKSegEncoder):
         self.classifier = nn.Sequential(Linear(self.cs[8], num_classes,
                                                device=device,
                                                generator=generator))
+        if remat:
+            set_remat(self, REMAT_BLOCKS, PLANS_AND_CONV_OUTPUTS)
 
     def forward(self, x: SparseTensor) -> torch.Tensor:
         feats_list = self.encode(x)

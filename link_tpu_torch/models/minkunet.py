@@ -1,14 +1,16 @@
 """MinkUNet baseline (reference segmentation/core/models/semantic_kitti/
 minkunet.py:91-254): a plain sparse U-Net with no ELK branch.
 
-PyTorch counterpart of `link_tpu/models/minkunet.py`, inference path.
+PyTorch counterpart of `link_tpu/models/minkunet.py`.
 The reference's actual channel plan is cs = [64] * 9 * cr (minkunet.py:98;
 the stock SPVNAS [32, 32, 64, 128, 256, 256, 128, 96, 96] list is commented
 out there), so that is the default; `channels` selects another plan.
 Submodules are named after the reference `state_dict` keys. The reference
 also defines `point_transforms`, which its forward never calls; the port
 leaves them out, and `utils.convert.load_reference_state_dict` drops their
-keys by name (`UNUSED_REFERENCE_KEYS`).
+keys by name (`UNUSED_REFERENCE_KEYS`). `remat=True` rematerializes every
+residual and down block in training, keeping the plans only, as the JAX
+model's policy does (`nn/remat.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from ..nn.modules import Linear, SparseBatchNorm, SparseConv3d, SparseReLU
+from ..nn.remat import PLANS, set_remat
 from ..sparse.tensor import SparseTensor
 from .blocks import (BasicConvolutionBlock, ResidualBlock, add_decoder,
                      decoder_level)
@@ -62,7 +65,7 @@ class MinkUNet(SparseUNetBody):
                  channels: Sequence[int] = MINKUNET_CHANNELS,
                  in_channels: int = 4,
                  capacities: Tuple[int, ...] = DEFAULT_CAPACITIES,
-                 dtype: str = "float32", device="cuda",
+                 dtype: str = "float32", remat: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
@@ -72,6 +75,10 @@ class MinkUNet(SparseUNetBody):
         self.classifier = nn.Sequential(
             Linear(self.cs[8], num_classes, device=device,
                    generator=generator))
+        if remat:
+            # the JAX MinkUNet's policy keeps the plans only
+            # (minkunet.py:_plan_policy): the replay runs the convs again
+            set_remat(self, (ResidualBlock, BasicConvolutionBlock), PLANS)
 
     def forward(self, x: SparseTensor) -> torch.Tensor:
         x0 = self.stem(x.replace(feats=x.feats.to(self.dtype)))

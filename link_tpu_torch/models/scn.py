@@ -1,4 +1,5 @@
-"""Detection sparse backbone: SpMiddleResNetFHDELKv3.
+"""Detection sparse backbones: SpMiddleResNetFHDELKv3 and the plain
+SpMiddleResNetFHD.
 
 PyTorch counterpart of `link_tpu/models/scn.py` (reference
 detection/det3d/models/backbones/scn.py:453-627). spconv ResNet: a
@@ -6,7 +7,10 @@ SubM stem (5 -> 16), 4 levels of 2 SparseBasicBlocks at planes
 [16, 32, 64, 128] with SparseConv3d(k3, s2, p1) downsamples (z padding 0 at
 the last), each level fused with a parallel TSELK block (cos basis, block
 7, r 3) + SubM tail by add + ReLU, an extra z-compress SparseConv3d((3,1,1),
-(2,1,1)), and .dense() -> (B, C*D, H, W) BEV.
+(2,1,1)), and .dense() -> (B, C*D, H, W) BEV. `elk=False` (and
+`SpMiddleResNetFHD`) drops each level's ELK block, `elk{l}_tail` and
+`conv{l}_tail`: CenterPoint's own VoxelNet backbone, the baseline LinK is
+measured against.
 
 `dense_from_level=L` runs the levels from L on (0-based, as in the JAX
 package) on a masked dense grid (`sparse/dense_grid.py`): the rows of
@@ -143,8 +147,9 @@ class SparseBasicBlock(nn.Module):
 
 class SpMiddleResNetFHDELKv3(nn.Module):
 
-    def __init__(self, num_input_features: int = 5, block_sz: int = 7,
-                 elk_r: int = 3, capacities: Tuple[int, ...] = DET_CAPACITIES,
+    def __init__(self, num_input_features: int = 5, elk: bool = True,
+                 block_sz: int = 7, elk_r: int = 3,
+                 capacities: Tuple[int, ...] = DET_CAPACITIES,
                  batch_size: int = 1, dtype: str = "float32",
                  dense_from_level: Optional[int] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -153,6 +158,7 @@ class SpMiddleResNetFHDELKv3(nn.Module):
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         if dense_from_level is not None and not 0 <= dense_from_level <= 3:
             raise ValueError("dense_from_level must be None or 0-3")
+        self.elk = elk
         self.dense_from_level = dense_from_level
         self.block_sz, self.elk_r = block_sz, elk_r
         self.capacities = tuple(capacities)
@@ -173,6 +179,8 @@ class SpMiddleResNetFHDELKv3(nn.Module):
                     **kw))
             self.add_module(f"conv{lvl + 1}", nn.Sequential(
                 SparseBasicBlock(c, **kw), SparseBasicBlock(c, **kw)))
+            if not elk:
+                continue
             self.add_module(f"conv{lvl + 1}_tail", nn.Sequential(
                 SubMConv3d(c, c, **kw),
                 SparseBatchNorm(c, device=device, **DET_NORM)))
@@ -210,6 +218,9 @@ class SpMiddleResNetFHDELKv3(nn.Module):
                     and isinstance(st, SparseTensor)):
                 st = to_dense_grid(st, shape, self.batch_size)
             y = getattr(self, f"conv{lvl}")(st)
+            if not self.elk:
+                st = y
+                continue
             y = getattr(self, f"conv{lvl}_tail")(y)
             lk = getattr(self, f"elk{lvl}")(st, self.block_sz, self.elk_r)
             lk = getattr(self, f"elk{lvl}_tail")(lk)
@@ -218,3 +229,13 @@ class SpMiddleResNetFHDELKv3(nn.Module):
         if isinstance(st, DenseGrid):
             return dense_to_bev(st)
         return to_dense_bev(st, shape, self.batch_size)
+
+
+class SpMiddleResNetFHD(SpMiddleResNetFHDELKv3):
+    """The plain CenterPoint backbone, without the ELK branch (reference
+    scn.py:155-264): level l is `conv{l}` alone. JAX's
+    `SpMiddleResNetFHD`, the ELKv3 backbone with `elk=False`."""
+
+    def __init__(self, num_input_features: int = 5, elk: bool = False,
+                 **kw):
+        super().__init__(num_input_features, elk=elk, **kw)

@@ -29,8 +29,10 @@ def voxel_feature_extractor_v3(voxels: torch.Tensor,
 
 
 class VoxelNet(nn.Module):
-    """`dtype` is the compute dtype of backbone, neck and head (parameters
-    and the box decode stay float32). `dcn_head` gives the head a
+    """`elk=False` builds the plain CenterPoint VoxelNet, whose backbone
+    has no ELK branch (`scn.SpMiddleResNetFHD`). `dtype` is the compute
+    dtype of backbone, neck and head (parameters and the box decode stay
+    float32), in serving and in training (`train/det_trainer.py`). `dcn_head` gives the head a
     DCNSepHead per task; `dense_from_level` runs the backbone's levels from
     that one on on a masked dense grid (`models/scn.py`); `return_bev`
     makes the forward return (preds, the neck's output), the BEV map of
@@ -39,6 +41,7 @@ class VoxelNet(nn.Module):
     def __init__(self, num_input_features: int = 5, batch_size: int = 1,
                  grid_shape: Tuple[int, int, int] = (1440, 1440, 40),
                  capacities: Tuple[int, ...] = DET_CAPACITIES,
+                 elk: bool = True,
                  tasks: Tuple[Tuple[str, ...], ...] = NUSC_TASKS,
                  dtype: str = "float32", dcn_head: bool = False,
                  return_bev: bool = False,
@@ -49,7 +52,8 @@ class VoxelNet(nn.Module):
         self.tasks = tuple(tuple(t) for t in tasks)
         self.return_bev = return_bev
         self.backbone = SpMiddleResNetFHDELKv3(
-            num_input_features=num_input_features, capacities=capacities,
+            num_input_features=num_input_features, elk=elk,
+            capacities=capacities,
             batch_size=batch_size, dtype=dtype,
             dense_from_level=dense_from_level, device=device,
             generator=generator)

@@ -1,4 +1,5 @@
-"""torch.nn modules over SparseTensor: conv, norm, linear, activation.
+"""torch.nn modules over SparseTensor: conv, norm, linear, activation,
+pooling and crop.
 
 PyTorch counterpart of `link_tpu/nn/modules.py`. Parameter names and
 layouts follow the reference torchsparse modules, so a reference
@@ -26,6 +27,7 @@ from ..sparse import conv as spconv
 from ..sparse import coords as coordlib
 from ..sparse.dense_grid import DenseGrid, dense_subm_conv
 from ..sparse.tensor import SparseTensor
+from . import remat
 
 
 def _uniform(shape, bound: float, generator, device) -> nn.Parameter:
@@ -113,13 +115,16 @@ class SparseBatchNorm(nn.Module):
             # as jnp.maximum does; clamp would pass it whole
             var = s2 / n - mean.square()
             var = torch.maximum(var, torch.zeros_like(var))
-            with torch.no_grad():
-                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * unbiased)
-                self.num_batches_tracked.add_(1)
+            # a rematerialized block's replay (nn/remat.py) runs this
+            # forward a second time in the step: the statistics move once
+            if not remat.replaying():
+                with torch.no_grad():
+                    unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(
+                        self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(
+                        self.momentum * unbiased)
+                    self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -130,15 +135,34 @@ class SparseBatchNorm(nn.Module):
         return st.replace(feats=out.to(st.feats.dtype))
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the replicas of `group`, whose backward sums the
+    replicas' gradients (`torch.distributed.nn.functional.all_reduce`). The
+    reduced value is kept for a rematerialized block's replay
+    (`remat.saved`), which then makes no collective call: a step makes the
+    same calls, in the same order on every rank, with remat as without."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+
+        def reduce():
+            out = t.clone(memory_format=torch.contiguous_format)
+            torch.distributed.all_reduce(out, group=group)
+            return out
+        return remat.saved(reduce)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def differentiable_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of `t` over the replicas of `group`, whose backward sums the
-    replicas' gradients (`torch.distributed.nn.functional.all_reduce`; the
-    FutureWarning that newer PyTorch gives for it is silenced)."""
-    import warnings
-    from torch.distributed.nn.functional import all_reduce
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        return all_reduce(t, group=group)
+    replicas' gradients (`_AllReduceSum`)."""
+    return _AllReduceSum.apply(t, group)
 
 
 def _sum_over_replicas(group, *tensors):
@@ -204,4 +228,68 @@ class Linear(nn.Module):
 
 class SparseReLU(nn.Module):
     def forward(self, st: SparseTensor) -> SparseTensor:
-        return st.replace(feats=torch.relu(st.feats))
+        return relu(st)
+
+
+def relu(st: SparseTensor) -> SparseTensor:
+    return st.replace(feats=torch.relu(st.feats))
+
+
+def _batch_segments(st: SparseTensor, max_batch: int) -> torch.Tensor:
+    """Each row's batch index, `max_batch` for padding rows (the dump
+    segment)."""
+    b = st.coords[:, 3].long()
+    return torch.where(st.valid_mask(), b, torch.full_like(b, max_batch))
+
+
+class GlobalAveragePool(nn.Module):
+    """Per-batch-element mean over the valid voxels, (max_batch, C)
+    (torchsparse nn/modules/pooling.py GlobalAveragePool); the sums in the
+    feature dtype, the counts in float32, as the JAX module."""
+
+    def __init__(self, max_batch: int = 16):
+        super().__init__()
+        self.max_batch = max_batch
+
+    def forward(self, st: SparseTensor) -> torch.Tensor:
+        seg = _batch_segments(st, self.max_batch)
+        n = self.max_batch + 1
+        sums = st.feats.new_zeros((n, st.feats.shape[1])).index_add(
+            0, seg, st.feats)
+        cnts = torch.zeros(n, dtype=torch.float32, device=st.device
+                           ).index_add(0, seg, torch.ones_like(
+                               seg, dtype=torch.float32))
+        return (sums[:self.max_batch]
+                / torch.clamp(cnts[:self.max_batch, None], min=1.0))
+
+
+class GlobalMaxPool(nn.Module):
+    """Per-batch-element max over the valid voxels, (max_batch, C); an
+    element without voxels gives zeros."""
+
+    def __init__(self, max_batch: int = 16):
+        super().__init__()
+        self.max_batch = max_batch
+
+    def forward(self, st: SparseTensor) -> torch.Tensor:
+        seg = _batch_segments(st, self.max_batch)
+        neg = torch.full((self.max_batch + 1, st.feats.shape[1]),
+                         -torch.inf, dtype=torch.float32, device=st.device)
+        src = st.feats.to(torch.float32)
+        out = neg.scatter_reduce(0, seg[:, None].expand_as(src), src, "amax")
+        out = out[:self.max_batch]
+        return torch.where(torch.isfinite(out), out,
+                           torch.zeros_like(out)).to(st.feats.dtype)
+
+
+def crop(st: SparseTensor, loc_min, loc_max) -> SparseTensor:
+    """Keep the voxels inside [loc_min, loc_max) (torchsparse
+    nn/modules/crop.py). Fixed-capacity form: the rows outside become
+    padding (sentinel coords) and `nnz` counts the rest."""
+    c = st.coords
+    lo = torch.as_tensor(loc_min, dtype=torch.int32, device=c.device)
+    hi = torch.as_tensor(loc_max, dtype=torch.int32, device=c.device)
+    keep = st.valid_mask() & ((c[:, :3] >= lo) & (c[:, :3] < hi)).all(1)
+    coords = torch.where(keep[:, None], c,
+                         torch.full_like(c, coordlib.INVALID_COORD))
+    return st.replace(coords=coords, nnz=keep.sum().to(torch.int32))

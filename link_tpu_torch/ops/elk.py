@@ -11,6 +11,10 @@ PyTorch counterpart of `link_tpu/ops/elk.py`:
     gated by use_dense_aux;
   * upsample_voxel: broadcast a coarse level's feats onto finer coords
     through each fine voxel's ancestor, one exact join (`sorted_join`).
+
+Inside a rematerialized ELK block (`nn/remat.py`) the aux cells, the
+window's join and the float32 scatter sums are kept for the block's replay,
+which then joins nothing and rounds nothing otherwise than the forward.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from ..nn import remat
 from ..sparse import coords as coordlib
 from ..sparse import ops as spops
 from ..sparse.conv import mirror_perm
@@ -71,9 +76,9 @@ def elk_aux_window_dense(mod: torch.Tensor, coords: torch.Tensor, s: int,
              & (z >= 0) & (z < nzr) & (b >= 0) & (b < nb))
     lin = (((b.long() * nza + z // s) * nya + y // s) * nxa + x // s)
     lin = torch.where(valid, lin, torch.full_like(lin, cells))
-    sums = torch.zeros((cells + 1, c), dtype=torch.float32, device=mod.device)
-    sums.index_add_(0, lin, torch.where(valid[:, None], mod.to(torch.float32),
-                                        0.0))
+    sums = spops.segment_sum(torch.where(valid[:, None],
+                                         mod.to(torch.float32), 0.0),
+                             lin, cells + 1)
     cnts = torch.zeros(cells + 1, dtype=torch.float32, device=mod.device)
     cnts.index_add_(0, lin, valid.to(torch.float32))
     grid = sums[:cells].reshape(nb, nza, nya, nxa, c)
@@ -99,9 +104,14 @@ def voxel_to_aux(x: SparseTensor, s: int, aux_capacity: int):
     Returns (aux, idx_query, counts): aux cells keyed by the divided coords
     (floor(coord / s), batch); voxel -> aux slot (-1 for padding rows);
     voxels per aux cell."""
-    aux_coords, idx_query, aux_nnz = coordlib.unique_coords(
-        _div_coords(x.coords, s), aux_capacity)
-    counts = spops.spcount(idx_query, aux_capacity)
+    def plan():
+        aux_coords, idx_query, aux_nnz = coordlib.unique_coords(
+            _div_coords(x.coords, s), aux_capacity)
+        return (aux_coords, idx_query, aux_nnz,
+                spops.spcount(idx_query, aux_capacity))
+
+    # a plan: a rematerialized block's replay reads it back (nn/remat.py)
+    aux_coords, idx_query, aux_nnz, counts = remat.saved(plan)
     aux_feats = spops.spvoxelize(x.feats, idx_query, counts)
     aux = SparseTensor(feats=aux_feats, coords=aux_coords, nnz=aux_nnz,
                        stride=(s, s, s), cmaps=x.cmaps, kmaps=x.kmaps,
@@ -116,9 +126,11 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
     broadcast back to the voxels of `x`. The count channel is appended as an
     all-ones feature, as the reference does."""
     offsets = coordlib.kernel_offsets_np((r, r, r), stride=1, dilation=1)
-    # aux coords come from unique_coords, so they are already in key order
-    table = coordlib.build_table(aux.coords, assume_sorted=True)
-    nb_idx = coordlib.join_taps(table, aux.coords, offsets).T  # (M_aux, r^3)
+    # aux coords come from unique_coords, so they are already in key order;
+    # the join is a plan, which a rematerialized block's replay reads back
+    nb_idx = remat.saved(lambda: coordlib.join_taps(
+        coordlib.build_table(aux.coords, assume_sorted=True), aux.coords,
+        offsets)).T                                       # (M_aux, r^3)
 
     f = torch.cat([aux.feats, aux.feats.new_ones((aux.capacity, 1))], dim=1)
     f = f * counts.to(aux.feats.dtype)[:, None]

@@ -20,7 +20,9 @@ weight gradient is `gather_wgrad` over the mirrored map, as
 `_gm_win_factory` of the JAX package. Every plan's join runs
 through the `sorted_join` kernel (`link_tpu_torch/ops/kernels.py`), one
 call per plan: the window arrays come from the same call when the first
-conv to build the plan prefers the window form.
+conv to build the plan prefers the window form. Inside a rematerialized
+block (`nn/remat.py`) both Functions tape their output for the block's
+replay, as the JAX convs tag theirs `CONV_OUT_TAG`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..nn import remat
 from ..ops import kernels
 from . import coords as coordlib
 from . import ops as spops
@@ -194,7 +197,9 @@ class GatherConv(torch.autograd.Function):
     def forward(ctx, feats, weight, idx, bwd_idx, work=None):
         ctx.save_for_backward(feats, weight, bwd_idx)
         ctx.work = work
-        return kernels.gather_conv(feats, idx, weight)
+        # taped for a rematerialized block's replay (nn/remat.py)
+        return remat.saved(lambda: kernels.gather_conv(feats, idx, weight),
+                           conv_output=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -237,8 +242,9 @@ class WindowConv(torch.autograd.Function):
                 "gradient cannot take the window form")
         ctx.save_for_backward(feats, weight)
         ctx.plan = plan
-        return kernels.window_conv(feats, plan.base_pos, plan.slot,
-                                   plan.groups, weight)
+        return remat.saved(lambda: kernels.window_conv(
+            feats, plan.base_pos, plan.slot, plan.groups, weight),
+            conv_output=True)
 
     @staticmethod
     def backward(ctx, g):

@@ -3,7 +3,9 @@
 PyTorch counterpart of `link_tpu/sparse/ops.py`. Scatter reductions are
 index-adds into a table with one extra dump row, which takes the misses
 (idx == -1) and is cut off. PyTorch autograd differentiates all of them;
-`spdevoxelize` with an inverse map has a gather-form backward of its own.
+`spdevoxelize` with an inverse map has a gather-form backward of its own,
+and so has the float32 `segment_sum`, which keeps its value for a
+rematerialized block's replay (`nn/remat.py`).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..nn import remat
 from . import coords as coordlib
 
 
@@ -27,15 +30,39 @@ def spcount(idx: torch.Tensor, num_segments: int) -> torch.Tensor:
     return out[:num_segments]
 
 
+class _SegmentSum(torch.autograd.Function):
+    """out = zeros(num_segments, C).index_add_(0, index, src), whose
+    backward gathers: d_src = g[index]. The sum is kept for a
+    rematerialized block's replay (`remat.saved`): on the card its atomic
+    adds round in another order each time, and the replay must give the
+    forward's value to the bit."""
+
+    @staticmethod
+    def forward(ctx, src, index, num_segments):
+        ctx.save_for_backward(index)
+        return remat.saved(lambda: src.new_zeros(
+            (num_segments, src.shape[1])).index_add_(0, index, src))
+
+    @staticmethod
+    def backward(ctx, g):
+        index, = ctx.saved_tensors
+        return g.index_select(0, index), None, None
+
+
+def segment_sum(src: torch.Tensor, index: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """(num_segments, C) sums of the rows of `src` by `index` (int64, each
+    in [0, num_segments)), differentiable in `src`."""
+    return _SegmentSum.apply(src, index, num_segments)
+
+
 def spvoxelize(feats: torch.Tensor, idx: torch.Tensor,
                counts: torch.Tensor) -> torch.Tensor:
     """Mean-pool N rows into M segments by idx map (-1 = dropped); count 0
     gives zeros. Sums in float32 whatever the feature dtype."""
     m = counts.shape[0]
     safe = _dump_index(idx, m)
-    summed = torch.zeros((m + 1, feats.shape[1]), dtype=torch.float32,
-                         device=feats.device)
-    summed.index_add_(0, safe, feats.to(torch.float32))
+    summed = segment_sum(feats.to(torch.float32), safe, m + 1)
     denom = torch.clamp(counts, min=1).to(torch.float32)[:, None]
     return (summed[:m] / denom).to(feats.dtype)
 

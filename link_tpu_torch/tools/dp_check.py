@@ -36,7 +36,12 @@ refuses two ranks on one card): a check of correctness, not of scaling.
 cr1.0 float32 at the 80k cap, one scan a replica; the det part
 CenterPoint-ELKv3 float32 at the recipe's 163,840 cap, one frame a
 replica, on frames whose every level fits its capacity (a 20 m ground
-patch); TF32 is off for the holds.
+patch); TF32 is off for the holds. The part "seg_syncbn_remat" (not in
+the default parts) runs the seg part's data-parallel step with SyncBN over
+the ranks from a model built with remat and without (`nn/remat.py`): the
+remat step is held against the plain one as above, within 10x the widest
+of two repeats of the plain step, and must make the same all-reduce calls
+and kernel launches (`hold_remat`).
 """
 
 from __future__ import annotations
@@ -81,13 +86,15 @@ PARAM_TOL = 1e-6
 TIMED_STEPS = 2
 
 
-def seg_model(config: str, capacities, grid_extent, device, generator):
+def seg_model(config: str, capacities, grid_extent, device, generator,
+              remat: bool = False):
     """The config's seg model in float32 (`builder.make_model`)."""
     from ..models import builder
     from ..utils.config import load_config
     return builder.make_model(load_config(config), capacities=capacities,
                               dtype="float32", device=device,
-                              generator=generator, grid_extent=grid_extent)
+                              generator=generator, grid_extent=grid_extent,
+                              remat=remat)
 
 
 def sgd(model, lr: float, momentum=0.9, weight_decay=1e-4, nesterov=True):
@@ -221,11 +228,143 @@ def _rank(rank: int, world: int, backend: str, device: str,
     mesh = mh.init_mesh("file://" + os.path.join(workdir, "rendezvous"),
                         world, rank, device, backend)
     res = {"device": str(mesh.device), "backend": backend,
-           "jobs": {job["name"]: _rank_job(mesh, job, rank, workdir)
+           "jobs": {job["name"]: (_remat_rank_job if job.get("remat_runs")
+                                  else _rank_job)(mesh, job, rank, workdir)
                     for job in jobs}}
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
+
+
+# a SyncBN remat job's runs on every rank: the step without remat, two
+# repeats (their spread sets the gradient limits: the card's atomic sums
+# move a leaf by a whole ReLU term in some pairs of runs and not in
+# others), the step with remat
+REMAT_REPEATS = ("plain_again", "plain_again_2")
+REMAT_RUNS = ("plain",) + REMAT_REPEATS + ("remat",)
+
+
+def _remat_rank_job(mesh, job: Dict, rank: int, workdir: str) -> Dict:
+    """A SyncBN job on this rank: the data-parallel step from the shared
+    weights with every BatchNorm synced over the ranks, for each of
+    REMAT_RUNS (the model built with `remat` for the last); the
+    all-reduce calls and kernel launches of each step; rank 0's step
+    saved."""
+    from ..ops import kernels
+    dist = torch.distributed
+    step = shard_step(step_fn(job), mesh)
+    calls = {"n": 0}
+    real = dist.all_reduce
+
+    def all_reduce(*a, **kw):
+        calls["n"] += 1
+        return real(*a, **kw)
+
+    out = {}
+    for run in REMAT_RUNS:
+        model = job["model"](device=mesh.device,
+                             generator=torch.Generator().manual_seed(
+                                 job["seed"]), remat=run == "remat")
+        opt = job["optimizer"](model)
+        replicated(mesh, model)
+        sync_batch_norms(model, mesh.group)
+        kernels.reset_launch_counts()
+        calls["n"] = 0
+        dist.all_reduce = all_reduce
+        try:
+            _sync(mesh.device)
+            if mesh.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(mesh.device)
+            t0 = time.perf_counter()
+            metrics = step(model, opt, job["batches"])
+            _sync(mesh.device)
+        finally:
+            dist.all_reduce = real
+        out[run] = {"ms": (time.perf_counter() - t0) * 1e3,
+                    "all_reduce_calls": calls["n"],
+                    "launches": {f.__name__: f.launches
+                                 for f in kernels.KERNELS},
+                    "digest": digest(model)}
+        if mesh.device.type == "cuda":
+            out[run]["peak_mem_gb"] = (torch.cuda.max_memory_allocated(
+                mesh.device) / 2**30)
+        if rank == 0:
+            torch.save(_snapshot(model, metrics),
+                       os.path.join(workdir, f"{job['name']}_{run}.pt"))
+        del model, opt
+    return out
+
+
+REMAT_TOL = 1e-5   # remat vs plain step: the loss terms (relative) and
+#                    each running statistic (of its buffer's largest); the
+#                    forward repeats but for the atomic sums' rounding
+
+
+def running_stats(state: Dict) -> Dict:
+    """The BatchNorms' running statistics of a `state_dict`."""
+    return {k: v for k, v in state.items()
+            if "running" in k or "num_batches" in k}
+
+
+def remat_holds(runs: Dict) -> Dict:
+    """The remat step against the step without remat, from the readings
+    of REMAT_RUNS ({run: {"metrics", "grads", "stats"}}, from the same
+    weights on the same batch). Held: the loss terms and every running
+    statistic within REMAT_TOL, and `grad_gaps` within `grad_limits` of
+    the widest of the plain step's repeats, with the sum for the mean
+    planted (it must read outside). Read beside them: the worst gradient
+    entry. "failed" names the held readings out of bounds."""
+    plain, remat = runs["plain"], runs["remat"]
+    repeat = widest([grad_gaps(runs[run]["grads"], plain["grads"])
+                     for run in REMAT_REPEATS])
+    limits = grad_limits(repeat)
+    out = {"loss_err": max(abs(remat["metrics"][k] - v) / max(abs(v), 1e-30)
+                           for k, v in plain["metrics"].items()),
+           "stats": _worst(remat["stats"], plain["stats"],
+                           lambda k, w: float(w.double().abs().max())),
+           "grad": _entry_worst(remat["grads"], plain["grads"]),
+           "grad_repeat": {k: repeat[k] for k in ("norm", "dist")},
+           "grad_share": grad_shares(grad_gaps(remat["grads"],
+                                               plain["grads"]), limits),
+           "control": grad_shares(grad_gaps(
+               {k: 2 * g for k, g in plain["grads"].items()},
+               plain["grads"]), limits)}
+    out["failed"] = [name for name, bad in (
+        ("loss", not out["loss_err"] <= REMAT_TOL),
+        ("stats", not out["stats"][0] <= REMAT_TOL),
+        ("gradients", not _worst_share(out["grad_share"]) <= 1.0),
+        ("gradient hold blind to the sum for the mean",
+         not _worst_share(out["control"]) > 1.0)) if bad]
+    return out
+
+
+def hold_remat(job: Dict, ranks: List[Dict], workdir: str) -> Dict:
+    """The parent's side of a SyncBN remat job: rank 0's steps held by
+    `remat_holds`; besides, every rank's steps making the same all-reduce
+    calls and kernel launches with remat as without, and every rank's
+    parameters equal to the bit."""
+    runs = {}
+    for run in REMAT_RUNS:
+        snap = torch.load(os.path.join(workdir, f"{job['name']}_{run}.pt"))
+        runs[run] = {"metrics": snap["metrics"], "grads": snap["grads"],
+                     "stats": running_stats(snap["state"])}
+    out = remat_holds(runs)
+    per_rank = [r["jobs"][job["name"]] for r in ranks]
+    out["all_reduce_calls"] = [[r[run]["all_reduce_calls"]
+                                for run in REMAT_RUNS] for r in per_rank]
+    out["ms"] = [[r[run]["ms"] for run in REMAT_RUNS] for r in per_rank]
+    out["peak_mem_gb"] = [[r[run].get("peak_mem_gb") for run in REMAT_RUNS]
+                          for r in per_rank]
+    out["launches"] = per_rank[0]["remat"]["launches"]
+    out["failed"] += [name for name, bad in (
+        ("all-reduce calls", any(len(set(c)) != 1
+                                 for c in out["all_reduce_calls"])),
+        ("launches", any(r[run]["launches"] != r["plain"]["launches"]
+                         for r in per_rank for run in REMAT_RUNS)),
+        ("ranks' parameters differ", any(
+            len({r[run]["digest"] for r in per_rank}) != 1
+            for run in REMAT_RUNS))) if bad]
+    return out
 
 
 def run_ranks(jobs: List[Dict], nprocs: int, backend: str, device: str,
@@ -296,6 +435,17 @@ def grad_limits(repeat: Dict) -> Dict:
     lim = lambda v: max(GRAD_FLOOR, GRAD_FACTOR * v)  # noqa: E731
     return {"norm": lim(repeat["dist"]), "dist": lim(repeat["dist"]),
             "leaves": {k: lim(v) for k, v in repeat["leaf_dist"].items()}}
+
+
+def widest(readings: List[Dict]) -> Dict:
+    """Several `grad_gaps` readings merged by their largest value, reading
+    by reading and leaf by leaf: the spread of a step's repeats, as
+    `grad_limits` takes it."""
+    leaf = lambda key: {k: max(r[key][k] for r in readings)  # noqa: E731
+                        for k in readings[0][key]}
+    return {"norm": max(r["norm"] for r in readings),
+            "dist": max(r["dist"] for r in readings),
+            "leaves": leaf("leaves"), "leaf_dist": leaf("leaf_dist")}
 
 
 def grad_shares(gaps: Dict, limits: Dict) -> Dict:
@@ -470,6 +620,14 @@ def seg_job(world: int) -> Dict:
             "eval_classes": cfg.data.num_classes}
 
 
+def seg_syncbn_remat_job(world: int) -> Dict:
+    """`seg_job` with SyncBN, its model built with and without remat
+    (`_remat_rank_job`)."""
+    job = seg_job(world)
+    job.update(name="seg_syncbn_remat", remat_runs=True, timed_steps=0)
+    return job
+
+
 def fitting_det_frame(seed: int, n_points: int = 150000) -> Dict:
     """A train-mode nuScenes-shaped frame whose every backbone level fits
     the det capacities: `n_points` on a 20 m x 20 m ground patch (the
@@ -521,7 +679,9 @@ def check(parts=("seg", "det"), nprocs: int = 2,
     rank 0: gloo where every rank shares one device ("cuda:0", "cpu"),
     NCCL with a card a rank ("cuda"). Returns {part: holds and timings,
     "ranks": per-rank results}."""
-    jobs = [{"seg": seg_job, "det": det_job}[p](nprocs) for p in parts]
+    jobs = [{"seg": seg_job, "det": det_job,
+             "seg_syncbn_remat": seg_syncbn_remat_job}[p](nprocs)
+            for p in parts]
     backend = "nccl" if device == "cuda" else "gloo"
     ref_device = mh.rank_device(device)     # rank 0's
     with tempfile.TemporaryDirectory() as workdir:
@@ -530,10 +690,16 @@ def check(parts=("seg", "det"), nprocs: int = 2,
         out = {"ranks_s": time.perf_counter() - t0, "backend": backend,
                "ranks": ranks}
         for job in jobs:
-            out[job["name"]] = hold(job, ranks, workdir, ref_device,
-                                    TIMED_STEPS)
-    failed = {f"{p} {part}": out[p][part] for p in parts
-              for part in ("dp", "same") if out[p][part]["failed"]}
+            out[job["name"]] = (hold_remat(job, ranks, workdir)
+                                if job.get("remat_runs") else
+                                hold(job, ranks, workdir, ref_device,
+                                     TIMED_STEPS))
+    # a remat job's holds are one record; the other jobs' one a part
+    held = {p: ({p: out[p]} if "failed" in out[p] else
+                {f"{p} {part}": out[p][part] for part in ("dp", "same")})
+            for p in parts}
+    failed = {k: v for h in held.values() for k, v in h.items()
+              if v["failed"]}
     if failed:
         raise AssertionError(f"out of bounds: {failed}; all: "
                              f"{ {p: out[p] for p in parts} }")
@@ -561,6 +727,9 @@ def main(argv=None) -> int:
     print("\n".join(out["card"]), flush=True)
     for part in args.parts.split(","):
         r = out[part]
+        if "dp" not in r:
+            print(f"{part}: {r}", flush=True)
+            continue
         print(f"{part}: dp {r['dp']}, same batch {r['same']}; one-rank "
               f"step ms {r['one_rank_step_ms']}; per rank: "
               + "; ".join(f"{x['device']} step ms "

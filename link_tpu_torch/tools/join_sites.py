@@ -1,6 +1,7 @@
 """Device time, host time and launches of the join sites on the card.
 
     python3 link_tpu_torch/tools/join_sites.py [--tree DIR] [--out FILE]
+        [--dcn-repeats N]
 
 A join site is everything that builds one kernel map's join: forming the
 queries (base coordinates plus the tap offsets), the `sorted_join` launch,
@@ -11,7 +12,9 @@ through `join_taps`). The script runs one seg pass (4 scans), one det pass
 (2 frames) and one training step under torch.profiler, as `chip_smoke.py`
 drives them, and prints per scan, frame and step: the ranges' host ms, the
 device ms of the kernels and copies launched inside them, those launches,
-and the sites entered.
+and the sites entered, with whether the trace holds every `sorted_join`
+launch (chip_smoke's `_join_trace`). `--dcn-repeats N` adds N profiles of
+chip_smoke's det_dcn pass (2 frames), each read the same way.
 
 `--tree DIR` loads `link_tpu_torch` from another checkout (an unpacked
 `git archive` of an earlier commit). Where that package has no ranges of
@@ -116,19 +119,42 @@ def wrap_sites() -> bool:
     return True
 
 
-def _profile(run, n_items: int) -> dict:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _profile(run, n_items: int, cs) -> dict:
     from link_tpu_torch.ops import kernels
-    torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = cs._traced(run)
     out = range_stats(prof, JOIN_RANGE, n_items)
     out["sorted_join_calls"] = kernels.sorted_join.launches / n_items
+    out["trace"] = cs._join_trace(prof, kernels.sorted_join.launches)
     return out
+
+
+def _dcn_profiles(cs, repeats: int) -> list:
+    """`repeats` profiles of chip_smoke's det_dcn pass (the bf16
+    CenterPoint-ELKv3 with the DCN head, seed-0 weights, forward + decode +
+    device NMS over 2 det frames), each read per pass."""
+    import torch
+    from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.inference import DEFAULT_TEST_CFG
+    from link_tpu_torch.models.center_head import decode_boxes, device_nms
+    from link_tpu_torch.models.voxelnet import VoxelNet
+    from link_tpu_torch.tools import det_test
+    c = det_test.CAPACITY
+    model = VoxelNet(batch_size=1, grid_shape=det_test.GRID,
+                     capacities=(c, c // 2, c // 4, c // 8),
+                     dtype="bfloat16", dcn_head=True, device="cuda",
+                     generator=torch.Generator().manual_seed(0)).eval()
+    cfg = dict(DEFAULT_TEST_CFG)
+    batches = [cs._det_frame(i)[1] for i in range(2)]
+
+    def run():
+        with torch.inference_mode():
+            for b in batches:
+                device_nms(decode_boxes(model(*dp.det_inputs(b, "cuda")),
+                                        cfg, model.bbox_head.num_classes),
+                           cfg)
+    run()
+    return [_profile(run, 1, cs) for _ in range(repeats)]
 
 
 def main(argv=None) -> int:
@@ -136,6 +162,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=str(REPO),
                     help="checkout whose link_tpu_torch is measured")
     ap.add_argument("--out", default=None, help="JSON file for the result")
+    ap.add_argument("--dcn-repeats", type=int, default=0,
+                    help="also profile chip_smoke's det_dcn pass this many "
+                         "times")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -181,7 +210,7 @@ def main(argv=None) -> int:
         model(fresh(scans[0]))
         inputs = [fresh(st) for st in scans]
         res["seg_per_scan"] = _profile(lambda: [model(x) for x in inputs],
-                                       len(scans))
+                                       len(scans), cs)
     del model, scans, inputs
 
     # det serving: bf16 SingleFramePredictor, 2 frames (phase_det_main)
@@ -189,7 +218,7 @@ def main(argv=None) -> int:
     pred = SingleFramePredictor(dtype="bfloat16", seed=0, device="cuda")
     pred.forward(batches[0])
     res["det_per_frame"] = _profile(
-        lambda: [pred.forward(b) for b in batches], len(batches))
+        lambda: [pred.forward(b) for b in batches], len(batches), cs)
     del pred
 
     # seg training: f32, batch 2, the config's recipe (phase_train_main)
@@ -208,7 +237,12 @@ def main(argv=None) -> int:
                                 ignore_label=cfg.criterion.ignore_index)
 
     step(0)
-    res["train_per_step"] = _profile(lambda: step(1), 1)
+    res["train_per_step"] = _profile(lambda: step(1), 1, cs)
+    if args.dcn_repeats:
+        res["dcn_per_pass"] = _dcn_profiles(cs, args.dcn_repeats)
+        for i, r in enumerate(res["dcn_per_pass"]):
+            cs.log(f"dcn pass {i}: {r['sites']:.0f} join ranges, "
+                   f"{r['kinds']}; the trace {r['trace']}")
 
     for key in ("seg_per_scan", "det_per_frame", "train_per_step"):
         r = res[key]
@@ -221,7 +255,8 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
     print(json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "kinds"}
-                      if isinstance(v, dict) else v for k, v in res.items()}))
+                      if isinstance(v, dict) else v for k, v in res.items()
+                      if k != "dcn_per_pass"}))
     return 0
 
 

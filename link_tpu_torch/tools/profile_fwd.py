@@ -7,7 +7,8 @@ and `trace_device_ms_by_source` reads its trace. The shapes are the JAX
 tool's:
   * seg (default): ELKUNet cr1.0 in bfloat16 at DEFAULT_CAPACITIES on
     synthetic 80k-voxel scans with the 0.05 m grid extent; with --train
-    one SGD step (lr 0.01) of the same model on the same scans;
+    one SGD step (lr 0.01) of the same model built with remat=True (the
+    production step) on the same scans;
   * --det: CenterPoint-ELKv3 forward + box decode at the 160k-voxel cap
     (capacities (cap, cap // 2, cap // 4, cap // 8), cap 163,840) on
     synthetic nuScenes frames, in --dtype, with --dense-from L the hybrid
@@ -121,18 +122,30 @@ def det_call(args, device):
     return call, "frame"
 
 
-def seg_call(args, device):
-    """The seg forward (or, with --train, one SGD step) per call, on 2
-    synthetic scans in turn."""
+def seg_inputs():
+    """(grid extent, 2 collated batches of one synthetic scan each): the
+    seg shapes."""
     ds = SyntheticSemanticKITTI(length=2, num_points=SEG_VOXELS,
                                 n_raw_points=SEG_RAW_POINTS, split="train",
                                 voxel_size=SEG_VOXEL_SIZE)
     ext = grid_extent(SEG_VOXEL_SIZE, batch_size=1)
-    batches = [collate_scans([ds[i]], SEG_CAPS[0], grid_extent=ext)
-               for i in range(2)]
-    model = ELKUNet(num_classes=20, cr=SEG_CR, capacities=SEG_CAPS,
-                    dtype="bfloat16", grid_extent=ext, device=device,
-                    generator=torch.Generator().manual_seed(0))
+    return ext, [collate_scans([ds[i]], SEG_CAPS[0], grid_extent=ext)
+                 for i in range(2)]
+
+
+def seg_model(ext, device, remat: bool = False):
+    """The seg model in bfloat16 with seed-0 weights; `remat=True` is the
+    production training step's (the JAX tool's remat=True model)."""
+    return ELKUNet(num_classes=20, cr=SEG_CR, capacities=SEG_CAPS,
+                   dtype="bfloat16", grid_extent=ext, remat=remat,
+                   device=device, generator=torch.Generator().manual_seed(0))
+
+
+def seg_call(args, device):
+    """The seg forward (or, with --train, one SGD step of the remat model)
+    per call, on 2 synthetic scans in turn."""
+    ext, batches = seg_inputs()
+    model = seg_model(ext, device, remat=args.train)
     if args.train:
         opt = T.make_sgd(model.parameters(), 0.01)
 

@@ -2,7 +2,8 @@
 
 Counterpart of tools/seg_train.py (reference segmentation/train.py:31-184):
 config cascade, data-parallel training with the per-iteration
-cosine-warmup LR, val mIoU each epoch, rotating + best checkpoints.
+cosine-warmup LR, val mIoU each epoch, rotating + best checkpoints. The
+model is built with `remat=True`, as the JAX tool builds it.
 Trains on the SemanticKITTI tree at `dataset.root` (train split; val split
 for the mIoU), or on synthetic scans with `--synthetic`.
 
@@ -110,9 +111,12 @@ def main(argv=None) -> int:
     # capacities scale with the per-replica batch, not the world
     caps = tuple(c * batch for c in cfg.model.get("capacities"))
     seed = cfg.train.seed
+    # rematerialized blocks (the plans and conv outputs kept), as the JAX
+    # tool always trains
     model = builder.make_model(
         cfg, capacities=caps, dtype=cfg.model.get("dtype", "float32"),
-        device=device, generator=torch.Generator().manual_seed(seed))
+        device=device, generator=torch.Generator().manual_seed(seed),
+        remat=True)
     lr = builder.make_lr_schedule(cfg, world_size=world)
     opt = builder.make_optimizer(cfg, model.parameters(), lr(0))
     state = T.TrainState(model, opt)

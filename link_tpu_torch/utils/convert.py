@@ -315,7 +315,9 @@ def from_jax_det_params(params: Dict[str, Any],
                         batch_stats: Dict[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """flax VoxelNet {params, batch_stats} (backbone, neck, bbox_head) ->
-    reference-keyed det3d state_dict."""
+    reference-keyed det3d state_dict. A tree of `VoxelNet(elk=False)` has
+    no ELK blocks and tails, and its dict none of their keys: it loads into
+    the port's `VoxelNet(elk=False)` by `load_reference_state_dict`."""
     sd: Dict[str, torch.Tensor] = {}
 
     def bn(prefix, p, s):
@@ -340,6 +342,8 @@ def from_jax_det_params(params: Dict[str, Any],
                 sd[f"{pre}.conv{ci + 1}.bias"] = _t(conv["bias"])
                 bn(f"{pre}.bn{ci + 1}", p[f"SparseBatchNorm_{ci}"],
                    s[f"SparseBatchNorm_{ci}"])
+        if f"elk{lvl}" not in P:
+            continue        # the plain backbone (elk=False): no ELK branch
         for tail in (f"conv{lvl}_tail", f"elk{lvl}_tail"):
             sd[f"{B}.{tail}.0.weight"] = _subm_weight(P[tail]["kernel"])
             bn(f"{B}.{tail}.1", P[f"{tail}_bn"], S[f"{tail}_bn"])

@@ -171,6 +171,27 @@ def test_parameters_and_batch_stats_after_one_step_match_jax(one_step):
     assert len(moved) > 20          # the running statistics did move
 
 
+def test_remat_step_matches_jax(jax_step):
+    """The rematerialized ELKUNet (`remat=True`, seg_train's model) against
+    the same jitted JAX step (the JAX model without remat, which
+    tests/test_remat_policy.py holds equal to its remat model): the losses
+    and every gradient leaf to the bounds above."""
+    step, make_state = jax_step
+    port = TELKUNet(20, cr=CR, capacities=CAPS, remat=True, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    b = _batches(1)[0]
+    _, jm, jgrads = step(make_state(port), _jbatch(b))
+    opt = TT.make_sgd(port.parameters(), 1.0)
+    tm = TT.seg_train_step(port, opt, b, lr=TS.cosine_warmup(*SCHEDULE)(0))
+    for k in tm:
+        assert abs(float(tm[k]) - float(jm[k])) < 1e-4, k
+    want = _flat(jgrads, "params")
+    got = to_jax_flat({k: p.grad for k, p in port.named_parameters()})
+    assert sorted(got) == sorted(want)
+    worst = max(got, key=lambda k: _rel(got[k], want[k]))
+    assert _rel(got[worst], want[worst]) < 1e-3, worst
+
+
 def test_three_steps_match_jax(jax_step):
     step, make_state = jax_step
     port = _port_model()
