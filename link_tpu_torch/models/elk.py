@@ -20,7 +20,10 @@ aux_to_voxel collapse to block sums and an r^3 box sum over the block grid,
 weighted by the occupied cells per block (`sparse/dense_grid.py`).
 
 The block is rematerializable (`nn/remat.py`), as the seg models' ELK
-blocks are under `remat=True`.
+blocks are under `remat=True`. Under a profiler the block runs inside the
+range `ELK_FWD` and its backward inside `ELK_BWD` (`utils/profiling.py`),
+the replay of a rematerialized block included; its convs' and plans'
+ranges nest inside.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..ops.elk import aux_to_voxel, elk_aux_window_dense, use_dense_aux, voxel_t
 from ..sparse.dense_grid import (DenseGrid, block_broadcast, block_pool,
                                  box_sum, cell_coords_xyz)
 from ..sparse.tensor import SparseTensor
+from ..utils.profiling import ELK_BWD, ELK_FWD, BackwardSpan, span
 
 
 class ELKBlock(nn.Module):
@@ -70,8 +74,16 @@ class ELKBlock(nn.Module):
         self.norm = SparseLayerNorm(inc, device=device)
         self.norm_local = SparseLayerNorm(inc, device=device)
 
-    @remat.rematerializable
     def forward(self, st: SparseTensor, s: int, r: int) -> SparseTensor:
+        with span(ELK_FWD):
+            bwd = BackwardSpan(ELK_BWD, st.feats)
+            if not bwd.on:
+                return self._block(st, s, r)
+            out = self._block(st.replace(feats=bwd.x), s, r)
+            return out.replace(feats=bwd.out(out.feats))
+
+    @remat.rematerializable
+    def _block(self, st: SparseTensor, s: int, r: int) -> SparseTensor:
         dense = isinstance(st, DenseGrid)
         f_input = self.pre_mix(st.feats)
         if dense:

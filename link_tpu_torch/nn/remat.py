@@ -136,8 +136,8 @@ def rematerializable(forward: Callable) -> Callable:
 def set_remat(model: nn.Module, block_types: Tuple[Type[nn.Module], ...],
               policy: str) -> None:
     """Rematerialize every submodule of `model` of one of `block_types`
-    (each a block with a `rematerializable` forward) under `policy`. The
-    parameters and `state_dict` keys do not change."""
+    (each a block whose forward runs a `rematerializable` method) under
+    `policy`. The parameters and `state_dict` keys do not change."""
     if policy not in POLICIES:
         raise ValueError(f"remat policy must be one of {POLICIES}")
     for mod in model.modules():

@@ -15,12 +15,14 @@ PyTorch counterpart of `link_tpu/ops/elk.py`:
 Inside a rematerialized ELK block (`nn/remat.py`) the aux cells, the
 window's join and the float32 scatter sums are kept for the block's replay,
 which then joins nothing and rounds nothing otherwise than the forward.
+Under a profiler each of these index builds (aux cells, the window's join
+and its inverse, the upsample's table and query, the dense grid's cell
+index) runs inside the range `PLAN`.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..nn import remat
 from ..sparse import coords as coordlib
@@ -28,6 +30,7 @@ from ..sparse import ops as spops
 from ..sparse.conv import mirror_perm
 from ..sparse.dense_grid import box_sum
 from ..sparse.tensor import SparseTensor
+from ..utils.profiling import PLAN, span
 
 # Dense-aux path budget: bytes of the f32 (cells, C+1) aux grid.
 DENSE_AUX_MAX_BYTES = 256 * 1024 * 1024
@@ -71,16 +74,18 @@ def elk_aux_window_dense(mod: torch.Tensor, coords: torch.Tensor, s: int,
     nxa, nya, nza = -(-nxr // s), -(-nyr // s), -(-nzr // s)
     cells = nb * nza * nya * nxa
     c = mod.shape[1]
-    x, y, z, b = coords[:, 0], coords[:, 1], coords[:, 2], coords[:, 3]
-    valid = ((x >= 0) & (x < nxr) & (y >= 0) & (y < nyr)
-             & (z >= 0) & (z < nzr) & (b >= 0) & (b < nb))
-    lin = (((b.long() * nza + z // s) * nya + y // s) * nxa + x // s)
-    lin = torch.where(valid, lin, torch.full_like(lin, cells))
+    with span(PLAN):
+        x, y, z, b = (coords[:, 0], coords[:, 1], coords[:, 2],
+                      coords[:, 3])
+        valid = ((x >= 0) & (x < nxr) & (y >= 0) & (y < nyr)
+                 & (z >= 0) & (z < nzr) & (b >= 0) & (b < nb))
+        lin = (((b.long() * nza + z // s) * nya + y // s) * nxa + x // s)
+        lin = torch.where(valid, lin, torch.full_like(lin, cells))
+        cnts = torch.zeros(cells + 1, dtype=torch.float32, device=mod.device)
+        cnts.index_add_(0, lin, valid.to(torch.float32))
     sums = spops.segment_sum(torch.where(valid[:, None],
                                          mod.to(torch.float32), 0.0),
                              lin, cells + 1)
-    cnts = torch.zeros(cells + 1, dtype=torch.float32, device=mod.device)
-    cnts.index_add_(0, lin, valid.to(torch.float32))
     grid = sums[:cells].reshape(nb, nza, nya, nxa, c)
     cgrid = cnts[:cells].reshape(nb, nza, nya, nxa, 1)
     win = box_sum(grid, r)
@@ -105,10 +110,11 @@ def voxel_to_aux(x: SparseTensor, s: int, aux_capacity: int):
     (floor(coord / s), batch); voxel -> aux slot (-1 for padding rows);
     voxels per aux cell."""
     def plan():
-        aux_coords, idx_query, aux_nnz = coordlib.unique_coords(
-            _div_coords(x.coords, s), aux_capacity)
-        return (aux_coords, idx_query, aux_nnz,
-                spops.spcount(idx_query, aux_capacity))
+        with span(PLAN):
+            aux_coords, idx_query, aux_nnz = coordlib.unique_coords(
+                _div_coords(x.coords, s), aux_capacity)
+            return (aux_coords, idx_query, aux_nnz,
+                    spops.spcount(idx_query, aux_capacity))
 
     # a plan: a rematerialized block's replay reads it back (nn/remat.py)
     aux_coords, idx_query, aux_nnz, counts = remat.saved(plan)
@@ -128,9 +134,13 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
     offsets = coordlib.kernel_offsets_np((r, r, r), stride=1, dilation=1)
     # aux coords come from unique_coords, so they are already in key order;
     # the join is a plan, which a rematerialized block's replay reads back
-    nb_idx = remat.saved(lambda: coordlib.join_taps(
-        coordlib.build_table(aux.coords, assume_sorted=True), aux.coords,
-        offsets)).T                                       # (M_aux, r^3)
+    def window():
+        with span(PLAN):
+            return coordlib.join_taps(
+                coordlib.build_table(aux.coords, assume_sorted=True),
+                aux.coords, offsets)
+
+    nb_idx = remat.saved(window).T                        # (M_aux, r^3)
 
     f = torch.cat([aux.feats, aux.feats.new_ones((aux.capacity, 1))], dim=1)
     f = f * counts.to(aux.feats.dtype)[:, None]
@@ -142,7 +152,8 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
     if torch.is_grad_enabled() and f.requires_grad:
         mir = mirror_perm(offsets)
         if mir is not None:
-            inv_nb = nb_idx[:, torch.tensor(mir, device=nb_idx.device)]
+            with span(PLAN):
+                inv_nb = nb_idx[:, torch.tensor(mir, device=nb_idx.device)]
     window = spops.spdevoxelize(f, nb_idx,
                                 torch.ones_like(nb_idx, dtype=f.dtype),
                                 inv_idx=inv_nb)
@@ -167,11 +178,12 @@ def upsample_voxel(x: SparseTensor, ref_x: SparseTensor) -> SparseTensor:
     # and the table skips its sort when they were sorted; the fine side's
     # division can invert the order across z / y boundaries, which the
     # join takes as it comes
-    with record_function(coordlib.JOIN_INPUT_RANGE):
-        coarse = _div_coords(x.coords, s)
-        fine = _div_coords(ref_x.coords, s)
-    table = coordlib.build_table(coarse, assume_sorted=x.coords_sorted)
-    idx = table.query(fine)
+    with span(PLAN):
+        with span(coordlib.JOIN_INPUT_RANGE):
+            coarse = _div_coords(x.coords, s)
+            fine = _div_coords(ref_x.coords, s)
+        table = coordlib.build_table(coarse, assume_sorted=x.coords_sorted)
+        idx = table.query(fine)
     n = x.capacity
     safe = torch.where(idx >= 0, idx, torch.full_like(idx, n)).long()
     ext = torch.cat([x.feats, x.feats.new_zeros((1, x.feats.shape[1]))])

@@ -22,11 +22,11 @@ from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..sparse import coords as coordlib
 from ..sparse import ops as spops
 from ..sparse.tensor import SparseTensor
+from ..utils.profiling import span
 
 
 @dataclass
@@ -70,7 +70,7 @@ def _int_coords(pt: PointTensor) -> torch.Tensor:
 def _floor_base(pt: PointTensor, s: int) -> torch.Tensor:
     """(Np, 4) int32 rows floor(p / s) * s with the batch column; padding
     points sentinel. Formed inside `coords.JOIN_INPUT_RANGE`."""
-    with record_function(coordlib.JOIN_INPUT_RANGE):
+    with span(coordlib.JOIN_INPUT_RANGE):
         xyz = (torch.floor(pt.coords[:, :3] / s) * s).to(torch.int32)
         return _sentinel_rows(
             pt, torch.cat([xyz, pt.coords[:, 3:].to(torch.int32)], dim=1))

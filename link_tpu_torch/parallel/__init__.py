@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.profiler import record_function
+
+from ..utils.profiling import span
 
 # profiler range of the train steps' all-reduce
 ALL_REDUCE_RANGE = "dp/all_reduce"
@@ -134,7 +135,7 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> None:
     `pmean`): one flat all-reduce per dtype, then a division by the world
     size. Every rank gets the same bytes."""
     world = dist.get_world_size(group)
-    with record_function(ALL_REDUCE_RANGE), torch.no_grad():
+    with span(ALL_REDUCE_RANGE), torch.no_grad():
         def mean(flat):
             dist.all_reduce(flat, group=group)
             flat.div_(world)

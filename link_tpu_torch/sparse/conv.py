@@ -23,6 +23,12 @@ call per plan: the window arrays come from the same call when the first
 conv to build the plan prefers the window form. Inside a rematerialized
 block (`nn/remat.py`) both Functions tape their output for the block's
 replay, as the JAX convs tag theirs `CONV_OUT_TAG`.
+
+Under a profiler the conv kernels run inside the range of their role
+(`CONV_FWD`, `CONV_DGRAD`, `CONV_WGRAD` of `utils/profiling.py`) and every
+kernel-map build (plan, inverse map, work list) inside `PLAN`; no range of
+the one kind holds the other. The 1x1x1 products are dense matmuls and
+stay outside both.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from ..nn import remat
 from ..ops import kernels
+from ..utils.profiling import CONV_DGRAD, CONV_FWD, CONV_WGRAD, PLAN, span
 from . import coords as coordlib
 from . import ops as spops
 from .tensor import ConvPlan, SparseTensor
@@ -156,13 +163,14 @@ def plan_bwd_idx(plan: ConvPlan) -> torch.Tensor:
     and kept on the plan (link_tpu/sparse/conv.py:691-697 recomputes it per
     apply, which costs nothing under jit)."""
     if plan.bwd_idx is None:
-        if plan.mirror is not None:
-            plan.bwd_idx = plan.in_idx[_mirror_index(plan.mirror,
-                                                     plan.in_idx.device)]
-        else:
-            if plan.inv_idx is None:
-                plan.inv_idx = invert_plan(plan)
-            plan.bwd_idx = plan.inv_idx
+        with span(PLAN):
+            if plan.mirror is not None:
+                plan.bwd_idx = plan.in_idx[_mirror_index(plan.mirror,
+                                                         plan.in_idx.device)]
+            else:
+                if plan.inv_idx is None:
+                    plan.inv_idx = invert_plan(plan)
+                plan.bwd_idx = plan.inv_idx
     return plan.bwd_idx
 
 
@@ -173,11 +181,20 @@ def plan_wgrad_work(plan: ConvPlan, transposed: bool = False):
     weight gradients of every conv that shares the plan reuse it."""
     if transposed:
         if plan.in_work is None:
-            plan.in_work = kernels.wgrad_work_list(plan.in_idx)
+            with span(PLAN):
+                plan.in_work = kernels.wgrad_work_list(plan.in_idx)
         return plan.in_work
     if plan.bwd_work is None:
-        plan.bwd_work = kernels.wgrad_work_list(plan_bwd_idx(plan))
+        bwd_idx = plan_bwd_idx(plan)
+        with span(PLAN):
+            plan.bwd_work = kernels.wgrad_work_list(bwd_idx)
     return plan.bwd_work
+
+
+def _conv_fwd(fn, *args):
+    """A conv kernel of a forward, inside `CONV_FWD`."""
+    with span(CONV_FWD):
+        return fn(*args)
 
 
 class GatherConv(torch.autograd.Function):
@@ -198,8 +215,8 @@ class GatherConv(torch.autograd.Function):
         ctx.save_for_backward(feats, weight, bwd_idx)
         ctx.work = work
         # taped for a rematerialized block's replay (nn/remat.py)
-        return remat.saved(lambda: kernels.gather_conv(feats, idx, weight),
-                           conv_output=True)
+        return remat.saved(lambda: _conv_fwd(kernels.gather_conv, feats,
+                                             idx, weight), conv_output=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -207,11 +224,17 @@ class GatherConv(torch.autograd.Function):
         g = g.contiguous()
         d_feats = d_weight = None
         if ctx.needs_input_grad[0]:
-            d_feats = kernels.gather_conv(
-                g, bwd_idx, weight.transpose(1, 2).contiguous())
+            with span(CONV_DGRAD):
+                d_feats = kernels.gather_conv(
+                    g, bwd_idx, weight.transpose(1, 2).contiguous())
         if ctx.needs_input_grad[1]:
-            d_weight = kernels.gather_wgrad(feats, g, bwd_idx,
-                                            ctx.work).to(weight.dtype)
+            work = ctx.work
+            if work is None:
+                with span(PLAN):
+                    work = kernels.wgrad_work_list(bwd_idx)
+            with span(CONV_WGRAD):
+                d_weight = kernels.gather_wgrad(feats, g, bwd_idx,
+                                                work).to(weight.dtype)
         return d_feats, d_weight, None, None, None
 
 
@@ -242,9 +265,9 @@ class WindowConv(torch.autograd.Function):
                 "gradient cannot take the window form")
         ctx.save_for_backward(feats, weight)
         ctx.plan = plan
-        return remat.saved(lambda: kernels.window_conv(
-            feats, plan.base_pos, plan.slot, plan.groups, weight),
-            conv_output=True)
+        return remat.saved(lambda: _conv_fwd(
+            kernels.window_conv, feats, plan.base_pos, plan.slot,
+            plan.groups, weight), conv_output=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -253,14 +276,16 @@ class WindowConv(torch.autograd.Function):
         g = g.contiguous()
         d_feats = d_weight = None
         if ctx.needs_input_grad[0]:
-            mir = _mirror_index(plan.mirror, weight.device)
-            d_feats = kernels.window_conv(
-                g, plan.base_pos, plan.slot, plan.groups,
-                weight[mir].transpose(1, 2).contiguous())
+            with span(CONV_DGRAD):
+                mir = _mirror_index(plan.mirror, weight.device)
+                d_feats = kernels.window_conv(
+                    g, plan.base_pos, plan.slot, plan.groups,
+                    weight[mir].transpose(1, 2).contiguous())
         if ctx.needs_input_grad[1]:
-            d_weight = kernels.gather_wgrad(
-                feats, g, plan_bwd_idx(plan),
-                plan_wgrad_work(plan)).to(weight.dtype)
+            bwd_idx, work = plan_bwd_idx(plan), plan_wgrad_work(plan)
+            with span(CONV_WGRAD):
+                d_weight = kernels.gather_wgrad(feats, g, bwd_idx,
+                                                work).to(weight.dtype)
         return d_feats, d_weight, None
 
 
@@ -283,16 +308,51 @@ def apply_conv_plan(feats: torch.Tensor, weight: torch.Tensor,
         if needs_grad:
             return GatherConv.apply(feats, weight, plan.inv_idx, plan.in_idx,
                                     plan_wgrad_work(plan, transposed=True))
-        return kernels.gather_conv(feats, plan.inv_idx, weight)
+        return _conv_fwd(kernels.gather_conv, feats, plan.inv_idx, weight)
     if uses_window(plan, feats, prefer_window):
         if needs_grad:
             return WindowConv.apply(feats, weight, plan)
-        return kernels.window_conv(feats, plan.base_pos, plan.slot,
-                                   plan.groups, weight)
+        return _conv_fwd(kernels.window_conv, feats, plan.base_pos,
+                         plan.slot, plan.groups, weight)
     if needs_grad:
         return GatherConv.apply(feats, weight, plan.in_idx,
                                 plan_bwd_idx(plan), plan_wgrad_work(plan))
-    return kernels.gather_conv(feats, plan.in_idx, weight)
+    return _conv_fwd(kernels.gather_conv, feats, plan.in_idx, weight)
+
+
+def _level_plan(x: SparseTensor, plan: Optional[ConvPlan], kernel_size,
+                stride, offsets, window_q: Optional[int],
+                out_capacity: Optional[int]) -> ConvPlan:
+    """The plan of a forward conv3d over `x`: built (with the level's key
+    table, shared by every plan at this level, and for a strided conv the
+    downsampled coords and the eager inverse map of the U-Net's matching
+    transposed conv), or, a plan first built for a caller that did not
+    prefer the window form, given its window arrays."""
+    if plan is not None:
+        return add_window_form(plan, x.kmaps[("table", x.stride)], offsets,
+                               window_q)
+    strided = any(s > 1 for s in stride)
+    if strided:
+        out_coords, out_nnz = spops.spdownsample(
+            x.coords, out_capacity or x.capacity, stride, kernel_size,
+            x.stride)
+    else:
+        out_coords, out_nnz = x.coords, x.nnz
+    tkey = ("table", x.stride)
+    table = x.kmaps.get(tkey)
+    if table is None:
+        iso = x.stride[0] == x.stride[1] == x.stride[2]
+        table = coordlib.build_table(
+            x.coords, assume_sorted=x.coords_sorted,
+            grid_shape=x.grid_extent if iso else None,
+            grid_quantum=x.stride[0])
+        x.kmaps[tkey] = table
+    plan = build_conv_plan(x.coords, out_coords, out_nnz, offsets,
+                           in_capacity=x.capacity, in_sorted=x.coords_sorted,
+                           table=table, window_quantum=window_q)
+    if strided and plan.mirror is None:
+        plan = plan.replace(inv_idx=invert_plan(plan))
+    return plan
 
 
 def conv3d(x: SparseTensor, weight: torch.Tensor,
@@ -344,37 +404,10 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
                     and coordlib.can_group_offsets(offsets, x.stride[0])
                     else None)
         plan = x.kmaps.get(key)
-        if plan is None:
-            if strided:
-                cap = out_capacity or x.capacity
-                out_coords, out_nnz = spops.spdownsample(
-                    x.coords, cap, stride, kernel_size, x.stride)
-            else:
-                out_coords, out_nnz = x.coords, x.nnz
-            # one key table per coordinate map, shared by every plan built
-            # at this level (submanifold + down convs)
-            tkey = ("table", x.stride)
-            table = x.kmaps.get(tkey)
-            if table is None:
-                iso = x.stride[0] == x.stride[1] == x.stride[2]
-                table = coordlib.build_table(
-                    x.coords, assume_sorted=x.coords_sorted,
-                    grid_shape=x.grid_extent if iso else None,
-                    grid_quantum=x.stride[0])
-                x.kmaps[tkey] = table
-            plan = build_conv_plan(x.coords, out_coords, out_nnz, offsets,
-                                   in_capacity=x.capacity,
-                                   in_sorted=x.coords_sorted, table=table,
-                                   window_quantum=window_q)
-            if strided and plan.mirror is None:
-                # eager inverse map for the U-Net's matching transposed conv
-                plan = plan.replace(inv_idx=invert_plan(plan))
-            x.kmaps[key] = plan
-        elif window_q is not None and plan.groups is None:
-            # a plan first built for a caller that did not prefer the
-            # window form gains the arrays here
-            plan = add_window_form(plan, x.kmaps[("table", x.stride)],
-                                   offsets, window_q)
+        if plan is None or (window_q is not None and plan.groups is None):
+            with span(PLAN):
+                plan = _level_plan(x, plan, kernel_size, stride, offsets,
+                                   window_q, out_capacity)
             x.kmaps[key] = plan
 
         feats = apply_conv_plan(x.feats, weight, plan,
@@ -393,7 +426,8 @@ def conv3d(x: SparseTensor, weight: torch.Tensor,
         tkey = ("plan", tensor_stride, kernel_size, stride, dilation)
         plan = x.kmaps[tkey]
         if plan.inv_idx is None:
-            plan = plan.replace(inv_idx=invert_plan(plan))
+            with span(PLAN):
+                plan = plan.replace(inv_idx=invert_plan(plan))
             x.kmaps[tkey] = plan
         feats = apply_conv_plan(x.feats, weight, plan, transposed=True)
         if bias is not None:

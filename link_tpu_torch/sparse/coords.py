@@ -26,10 +26,10 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import kernels
 from ..ops.kernels import INT32_MAX, offset_groups, pack_coords
+from ..utils.profiling import span
 
 Int3 = Tuple[int, int, int]
 
@@ -85,7 +85,7 @@ class CoordTable:
         """Index of each query coord (..., 4) in the original coordinate
         rows, or -1 when absent: the join with one zero offset, one
         `sorted_join` launch."""
-        with record_function(JOIN_RANGE):
+        with span(JOIN_RANGE):
             return kernels.sorted_join(self.hi, self.lo, self.perm, coords)
 
 
@@ -196,7 +196,7 @@ def join_taps(table: CoordTable, base_coords: torch.Tensor,
     """Kernel map in_idx[k, j]: the original row of base_coords[j] (xyz
     times `mult` where given) + offsets[k], or -1. One exact `sorted_join`
     launch over all K * M queries, formed in the kernel."""
-    with record_function(JOIN_RANGE):
+    with span(JOIN_RANGE):
         return kernels.sorted_join(table.hi, table.lo, table.perm,
                                    base_coords, offsets, mult)
 
@@ -218,6 +218,6 @@ def window_join(table: CoordTable, base_coords: torch.Tensor,
     with padding queries pinned to the group's last valid base
     (link_tpu/sparse/coords.py:1089-1096); slot (K, M) int8, -1 on a
     miss."""
-    with record_function(JOIN_RANGE):
+    with span(JOIN_RANGE):
         return kernels.sorted_join(table.hi, table.lo, table.perm,
                                    base_coords, offsets, mode="window")

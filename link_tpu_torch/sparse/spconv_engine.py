@@ -20,6 +20,7 @@ import torch
 
 from . import coords as coordlib
 from .conv import apply_conv_plan
+from ..utils.profiling import PLAN, span
 from .tensor import ConvPlan, SparseTensor
 
 
@@ -37,8 +38,9 @@ def ensure_level_table(st: SparseTensor, in_shape, batch_size: int) -> None:
     if tkey not in st.kmaps:
         gs = (int(in_shape[0]), int(in_shape[1]), int(in_shape[2]),
               int(batch_size))
-        st.kmaps[tkey] = coordlib.build_table(
-            st.coords, assume_sorted=st.coords_sorted, grid_shape=gs)
+        with span(PLAN):
+            st.kmaps[tkey] = coordlib.build_table(
+                st.coords, assume_sorted=st.coords_sorted, grid_shape=gs)
 
 
 def _tap_offsets(kernel_size) -> np.ndarray:
@@ -120,23 +122,24 @@ def spconv3d(x: SparseTensor, weight: torch.Tensor,
     key = ("spconv", tuple(in_shape), ks, st, pd)
     plan = x.kmaps.get(key)
     if plan is None:
-        out_coords, out_nnz = spconv_downsample(x.coords, ks, st, pd,
-                                                out_shape, cap)
-        # share the level's key table with the SubM convs (conv3d caches
-        # it under the same key)
-        tkey = ("table", x.stride)
-        table = x.kmaps.get(tkey)
-        if table is None:
-            gs = ((int(in_shape[0]), int(in_shape[1]), int(in_shape[2]),
-                   int(batch_size)) if batch_size and x.coords_sorted
-                  else None)
-            table = coordlib.build_table(x.coords,
-                                         assume_sorted=x.coords_sorted,
-                                         grid_shape=gs)
-            x.kmaps[tkey] = table
-        plan = build_spconv_plan(x.coords, out_coords, out_nnz, ks, st, pd,
-                                 in_capacity=x.capacity,
-                                 in_sorted=x.coords_sorted, table=table)
+        with span(PLAN):
+            out_coords, out_nnz = spconv_downsample(x.coords, ks, st, pd,
+                                                    out_shape, cap)
+            # share the level's key table with the SubM convs (conv3d caches
+            # it under the same key)
+            tkey = ("table", x.stride)
+            table = x.kmaps.get(tkey)
+            if table is None:
+                gs = ((int(in_shape[0]), int(in_shape[1]), int(in_shape[2]),
+                       int(batch_size)) if batch_size and x.coords_sorted
+                      else None)
+                table = coordlib.build_table(x.coords,
+                                             assume_sorted=x.coords_sorted,
+                                             grid_shape=gs)
+                x.kmaps[tkey] = table
+            plan = build_spconv_plan(x.coords, out_coords, out_nnz, ks, st, pd,
+                                     in_capacity=x.capacity,
+                                     in_sorted=x.coords_sorted, table=table)
         x.kmaps[key] = plan
     feats = apply_conv_plan(x.feats, weight, plan)
     # every spconv level is a new unit lattice: fresh caches, so submanifold

@@ -24,13 +24,13 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..data.det_pipeline import det_inputs, det_targets
 from ..models.center_head import CODE_WEIGHTS, center_head_loss, decode_boxes
 from ..parallel import all_reduce_mean, replica_tensors
+from ..utils.profiling import span
 
-# profiler ranges of one train step (torch.profiler.record_function)
+# profiler ranges of one train step (`utils.profiling.span`)
 RANGES = ("det_train/forward", "det_train/backward", "det_train/optimizer")
 
 
@@ -145,19 +145,18 @@ def det_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     {loss, hm_loss_t, loc_loss_t} on the model's device."""
     model.train()
     device = next(model.parameters()).device
-    # the ranges cost nothing outside a profiler run
-    with record_function(RANGES[0]):
+    with span(RANGES[0]):
         inputs = det_inputs(batch, device)
         example = det_targets(batch, device)
         opt.zero_grad(set_to_none=True)
         preds = model(*inputs)
         loss, logs = center_head_loss(preds, example, weight, code_weights)
-    with record_function(RANGES[1]):
+    with span(RANGES[1]):
         loss.backward()
     metrics = {k: v.detach() for k, v in logs.items()}
     if group is not None:
         all_reduce_mean(replica_tensors(model, metrics), group)
-    with record_function(RANGES[2]):
+    with span(RANGES[2]):
         opt.step()
     return metrics
 

@@ -13,15 +13,15 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..parallel import DataMesh, all_reduce_mean, replica_tensors
 from ..sparse.tensor import make_sparse_tensor
+from ..utils.profiling import LOSS_BWD, LOSS_FWD, BackwardSpan, span
 from . import losses as L
 from .metrics import iou_counters
 
 
-# profiler ranges of one train step (torch.profiler.record_function)
+# profiler ranges of one train step (`utils.profiling.span`)
 RANGES = ("seg_train/forward", "seg_train/backward", "seg_train/optimizer")
 
 
@@ -81,19 +81,22 @@ def seg_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     if lr is not None:
         for pg in opt.param_groups:
             pg["lr"] = lr
-    # the ranges cost nothing outside a profiler run
-    with record_function(RANGES[0]):
+    with span(RANGES[0]):
         st, labels, valid = _batch_on(model, batch)
         opt.zero_grad(set_to_none=True)
         logits = model(st)
-        loss, aux = L.segmentation_loss(logits, labels, valid, ignore_label)
-    with record_function(RANGES[1]):
+        with span(LOSS_FWD):
+            bwd = BackwardSpan(LOSS_BWD, logits)
+            loss, aux = L.segmentation_loss(bwd.x, labels, valid,
+                                            ignore_label)
+            loss = bwd.out(loss)
+    with span(RANGES[1]):
         loss.backward()
     metrics = {"loss": loss.detach(),
                **{k: v.detach() for k, v in aux.items()}}
     if group is not None:
         all_reduce_mean(replica_tensors(model, metrics), group)
-    with record_function(RANGES[2]):
+    with span(RANGES[2]):
         opt.step()
     return metrics
 

@@ -2,17 +2,15 @@
 
 Counterpart of `link_tpu/utils/profiling.py`, rewritten for PyTorch (the
 JAX module reads XLA's device trace and cost analysis). The reference has
-only ad-hoc timing (SURVEY.md §5): IterTimerHook, dist_test middle-third
-latency, a thop-based flops counter. Here:
+only ad-hoc timing (SURVEY.md §5). Here:
+  * `span`: a `record_function` range that exists only while a profiler
+    runs, and `BackwardSpan`, the same range around a region's backward
+    in the autograd graph; the range names of the port's layers;
   * `trace`: a torch.profiler run (CPU, and the card's CUDA activity when
     the work runs there) written as a Chrome trace;
   * `trace_device_ms_by_source`: the device ms of such a trace per
-    `record_function` scope (the counterpart of XLA's `source` lanes; the
-    port names its scopes in `sparse/coords.py`, `ops/elk.py`,
-    `ops/point.py` and the trainers) and per kernel name;
-  * `flops_of`: the floating-point operations of a call, PyTorch's
-    operator count plus the hand kernels' products;
-  * `IterTimer`: a step timer with a data / step split (a copy).
+    `record_function` scope (the counterpart of XLA's `source` lanes) and
+    per kernel name.
 """
 
 from __future__ import annotations
@@ -24,9 +22,77 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
+
+# profiler ranges of the port's layers (the trainers, the join sites and
+# the all-reduce name theirs beside their code)
+CONV_FWD = "conv/fwd"          # the sparse conv kernels of a forward
+CONV_DGRAD = "conv/dgrad"      # a sparse conv's feature gradient
+CONV_WGRAD = "conv/wgrad"      # a sparse conv's weight gradient
+PLAN = "sparse/plan"           # every kernel-map build (joins nest inside)
+ELK_FWD = "elk/forward"        # the ELK block (its convs and plans nest)
+ELK_BWD = "elk/backward"
+LOSS_FWD = "loss/forward"      # the segmentation criterion
+LOSS_BWD = "loss/backward"
+
+_OFF = contextlib.nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler (or autograd profiler) run is recording."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """`record_function(name)` while a profiler runs, else a shared no-op
+    context: outside a profiler run the range costs no call into the
+    profiler."""
+    return record_function(name) if profiling() else _OFF
+
+
+class BackwardSpan:
+    """A range `name` around the backward of a region of the autograd
+    graph, on the thread that runs it (autograd's, for the card):
+
+        bwd = BackwardSpan(name, x)     # x: the region's input
+        y = bwd.out(region(bwd.x))      # y: the region's output
+
+    A hook before the node that made `y` opens the range; a hook before
+    the node of `bwd.x`, a view of `x` that only the region reads, closes
+    it. The autograd engine runs the ready node created last first, so the
+    region's nodes run between the two, and a sibling branch (created
+    earlier) after. The view adds no device operation. Marked only
+    while a profiler runs and `x` needs a gradient (else nothing would
+    close the range): otherwise `x` and `y` pass through and the graph
+    gains no node."""
+
+    def __init__(self, name: str, x: torch.Tensor):
+        self.on = (profiling() and torch.is_grad_enabled()
+                   and x.requires_grad)
+        self._name, self._open = name, []
+        if self.on:
+            x = x.view_as(x)
+            x.grad_fn.register_prehook(self._close_range)
+        self.x = x
+
+    def out(self, y: torch.Tensor) -> torch.Tensor:
+        if self.on and y.grad_fn is not None:
+            y.grad_fn.register_prehook(self._open_range)
+        return y
+
+    def _open_range(self, grad_outputs) -> None:
+        self._open.append(
+            torch.ops.profiler._record_function_enter_new(self._name, None))
+
+    def _close_range(self, grad_outputs) -> None:
+        if self._open:
+            with torch._C.DisableTorchFunctionSubclass():
+                torch.ops.profiler._record_function_exit._RecordFunction(
+                    self._open.pop())
+
 
 NO_SCOPE = "(no scope)"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -129,92 +195,3 @@ def trace_device_ms_by_source(trace_dir: str) -> Dict[str, Dict]:
                total_ms=(sum(by_kernel.values()) if device
                          else sum(by_scope.values())))
     return out
-
-
-# the hand kernels whose products PyTorch's counter cannot see, and the
-# (K, M, Ci, Co) of a call from its arguments
-_PRODUCTS = {
-    # feats (N, Ci), idx (K, M), weight (K, Ci, Co)
-    "gather_conv": lambda feats, idx, weight: (
-        idx.shape[0], idx.shape[1], weight.shape[1], weight.shape[2]),
-    # feats, base_pos, slot (K, M), groups, weight (K, Ci, Co)
-    "window_conv": lambda feats, base_pos, slot, groups, weight: (
-        slot.shape[0], slot.shape[1], weight.shape[1], weight.shape[2]),
-    # feats (N, Ci), g (M, Co), bwd_idx (K, N)
-    "gather_wgrad": lambda feats, g, bwd_idx, work=None: (
-        bwd_idx.shape[0], bwd_idx.shape[1], feats.shape[1], g.shape[1]),
-}
-
-
-def flops_of(fn: Callable, *args, **kwargs) -> Optional[float]:
-    """Floating-point operations of `fn(*args, **kwargs)` (replacement for
-    det3d/utils/flops_counter.py): what `torch.utils.flop_counter.
-    FlopCounterMode` counts of PyTorch's operators, plus the dense product
-    count 2 K M Ci Co of every `gather_conv`, `window_conv` and
-    `gather_wgrad` call, from its shapes (the hand kernels run through
-    ctypes, out of the counter's sight; on the CPU their plain twins' own
-    operators are taken out of the count in their place). M counts every
-    row of the call, padding rows included, as XLA counts `_gm_impl`'s
-    product in the JAX package. The number is not XLA's: it lacks the
-    elementwise operations, which XLA's cost analysis adds. None when the
-    call fails."""
-    from torch.utils.flop_counter import FlopCounterMode
-    from ..ops import kernels
-
-    counter = FlopCounterMode(display=False)
-    extra = [0]
-    saved = {name: getattr(kernels, name) for name in _PRODUCTS}
-
-    def counted(name, real):
-        def call(*a, **kw):
-            before = counter.get_total_flops()
-            out = real(*a, **kw)
-            k, m, ci, co = _PRODUCTS[name](*a, **kw)
-            extra[0] += 2 * k * m * ci * co - (counter.get_total_flops()
-                                               - before)
-            return out
-        return call
-
-    try:
-        for name, real in saved.items():
-            setattr(kernels, name, counted(name, real))
-        with counter:
-            fn(*args, **kwargs)
-        return float(counter.get_total_flops() + extra[0])
-    except Exception:
-        return None
-    finally:
-        for name, real in saved.items():
-            setattr(kernels, name, real)
-
-
-class IterTimer:
-    """Running data/step time means, IterTimerHook-style."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.reset()
-
-    def reset(self):
-        self._n = 0
-        self.data_time = 0.0
-        self.step_time = 0.0
-        self._t = time.perf_counter()
-
-    def tic_data(self):
-        self._t_data = time.perf_counter()
-
-    def toc_data(self):
-        self._dt_data = time.perf_counter() - self._t_data
-
-    def toc_step(self):
-        dt = time.perf_counter() - self._t
-        self._n += 1
-        if self._n > self.warmup:
-            k = self._n - self.warmup
-            self.data_time += (self._dt_data - self.data_time) / k
-            self.step_time += (dt - self.step_time) / k
-        self._t = time.perf_counter()
-
-    def summary(self) -> Dict[str, float]:
-        return {"data_time": self.data_time, "step_time": self.step_time}

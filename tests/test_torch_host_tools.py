@@ -1,13 +1,12 @@
 """The port's host tools on the CPU: `utils/profiling`, the logger's
 tensorboard events, `tools/demo` and `tools/profile_fwd`.
 
-- `IterTimer` against the JAX package's on the same clock readings;
 - `TensorboardLogger` writes an event file (the `tensorboard` package is
   here), and is inactive, writing nothing, when the import fails;
-- `profiling.trace` of a tiny seg forward on the CPU, read back by
-  `trace_device_ms_by_source`, holds the port's `record_function` scopes;
-- `flops_of` equals the hand count on a tiny conv stack: PyTorch's own
-  product count plus 2 K M Ci Co for each `gather_conv` call;
+- `profiling.trace` of a tiny conv stack on the CPU, read back by
+  `trace_device_ms_by_source`, holds the port's `record_function` scopes,
+  and so does the trace of `profile_fwd`'s seg forward (the convs', the
+  plans' and the ELK block's);
 - `demo` on a `det_test --save-vis` pickle (the tiny det grid of
   tests/test_torch_det_test_tool.py) writes a PNG per frame, and its
   `box_corners_bev` equals the JAX tool's;
@@ -24,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from link_tpu.utils import profiling as JP
 from link_tpu_torch.data import det_pipeline as dp
 from link_tpu_torch.data.nuscenes import SyntheticNuScenes
 from link_tpu_torch.nn.modules import Linear, SparseConv3d
@@ -36,23 +34,6 @@ from link_tpu_torch.utils import profiling as TP
 from test_torch_det_test_tool import _test, tiny, tree  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tools import demo as jdemo
-
-
-def test_iter_timer_matches_jax(monkeypatch):
-    clock = iter(np.cumsum(np.random.default_rng(0).uniform(0, 1, 200)))
-    readings = [float(next(clock)) for _ in range(200)]
-    out = []
-    for mod in (TP, JP):
-        it = iter(readings)
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(it))
-        timer = mod.IterTimer(warmup=2)
-        for _ in range(9):
-            timer.tic_data()
-            timer.toc_data()
-            timer.toc_step()
-        out.append(timer.summary())
-        monkeypatch.undo()
-    assert out[0] == out[1] and out[0]["step_time"] > 0
 
 
 def test_tensorboard_logger_writes_events(tmp_path):
@@ -102,25 +83,24 @@ def _tiny_stack(seed=0):
     return run, cap
 
 
-def test_flops_of_equals_the_hand_count():
-    run, cap = _tiny_stack()
-    got = TP.flops_of(run)
-    # the two convs' gather form over every row, then the head's matmul
-    want = 2 * 27 * cap * (4 * 8 + 8 * 6) + 2 * cap * 6 * 3
-    assert got == want
-
-
-def test_trace_holds_the_ports_scopes(tmp_path):
+def test_trace_holds_the_ports_scopes(tmp_path, tiny_profile):
     run, _ = _tiny_stack(1)
     with TP.trace(str(tmp_path), "cpu"):
         run()
     stats = TP.trace_device_ms_by_source(str(tmp_path))
     assert stats["device"] == "cpu"
-    assert JOIN_RANGE in stats["by_scope"] and stats["by_scope"][
-        JOIN_RANGE] > 0
+    for scope in (JOIN_RANGE, TP.PLAN, TP.CONV_FWD):
+        assert stats["by_scope"].get(scope, 0) > 0, scope
     assert stats["launches"].get("aten::mm", 0) >= 1
     assert TP.trace_device_ms_by_source(str(tmp_path / "none"))[
         "device"] is None
+    # the scope table that profile_fwd prints, of its seg forward
+    seg = tmp_path / "seg"
+    assert profile_fwd.main(["--device", "cpu", "--iters", "1",
+                             "--trace-dir", str(seg)]) == 0
+    scopes = TP.trace_device_ms_by_source(str(seg))["by_scope"]
+    for scope in (TP.CONV_FWD, TP.PLAN, TP.ELK_FWD, JOIN_RANGE):
+        assert scopes.get(scope, 0) > 0, scope
 
 
 def test_demo_draws_a_det_test_vis_pickle(tree, tiny, tmp_path):  # noqa: F811
