@@ -123,6 +123,19 @@ Phases, in order (any failure raises and the script exits non-zero):
                  conv, at the training path's shapes (level 0 of one
                  synthetic batch of two scans: 169,984 rows, K=27 and the
                  K=8 down conv with its inverse), float32 and bfloat16;
+ 10a. elk_aggregate the ELK block's aggregation kernel against its twin at
+                 the training cell's four ELK levels (the level-0 batch of
+                 train_kernels downsampled as the model does: 192 channels,
+                 r = 2, aux cells of 3 x stride, aux capacity the level's),
+                 float32 and at level 1 bfloat16: forward and gradient
+                 (through the autograd Function against the kernel's own
+                 calls, and the kernel against the twin), bit-equal over
+                 two runs, the launches of one forward and backward, and
+                 the times of the kernel (forward, backward), the twin,
+                 the whole aggregation with its plan and the reference
+                 composition it replaced (voxel_to_aux + aux_to_voxel
+                 through PyTorch's index_add_ / index_select) with its
+                 plan, beside the byte bound;
  11. train_grad  one train step of the tiny ELKUNet of
                  tests/goldens/train_ab.npz on its scan 0, once on the CPU
                  (plain twins) and once on the card (kernels): loss and
@@ -153,7 +166,8 @@ Phases, in order (any failure raises and the script exits non-zero):
                  which must read outside), `gather_conv`, `sorted_join` and `gather_wgrad`
                  launched as often with remat as without (MinkUNet's
                  policy keeps the plans only, as JAX's: its replay runs
-                 the 36 convs of its blocks again), ms per step both
+                 the 36 convs of its blocks again; an ELK block's replay
+                 runs its `elk_aggregate` forward again), ms per step both
                  ways, peak memory above the resident; then ELKUNet's two
                  cases' steady step in four fresh processes (plain and
                  remat): peak memory;
@@ -2626,6 +2640,139 @@ def phase_train_kernels(res, ctx, iters=10):
     res["gather_conv_backward_cases"] = function
 
 
+ELK_CHANNELS = 192    # the cos_x ELK block's modulated rows at 64 channels
+
+
+def _elk_case(kernels, E, lvl_st, s, cap, x, g, iters, role):
+    """`elk_aggregate` at one ELK level: kernel against twin (forward and
+    gradient), against itself (two runs) and through its autograd
+    Function, against the reference composition; launches of one forward
+    and backward; times and byte bound."""
+    import torch
+    plan = E.elk_aux_plan(lvl_st, s, 2, cap, inverse=True)
+    tol = F32_REL_TOL if x.dtype == torch.float32 else BF16_REL_TOL
+    args = (plan.order, plan.start, plan.nnz)
+    fwd, denom = kernels.elk_aggregate(x, *args, plan.taps)
+    again, _ = kernels.elk_aggregate(x, *args, plan.taps)
+    bwd, _ = kernels.elk_aggregate(g, *args, plan.inv, denom)
+    want_f, want_d = kernels.elk_aggregate_plain(x, *args, plan.taps)
+    want_b, _ = kernels.elk_aggregate_plain(g, *args, plan.inv, want_d)
+    xr = x.clone().requires_grad_()
+    before = kernels.elk_aggregate.launches
+    E.elk_aggregate(xr, plan).backward(g)
+    torch.cuda.synchronize()
+    launches = kernels.elk_aggregate.launches - before
+    xo = x.clone().requires_grad_()
+    st_o = lvl_st.replace(feats=xo)
+    aux, idx, counts = E.voxel_to_aux(st_o, s, cap)
+    old = E.aux_to_voxel(aux, st_o, idx, counts, 2).feats
+    old.backward(g)
+    nnz, n_in = int(plan.nnz), int(plan.start[-1])
+    n, c = x.shape
+    k, m = plan.taps.shape
+    rec = {"name": role, "shape": f"N={n} M={m} live={nnz} voxels={n_in} "
+           f"K={k} C={c} {str(x.dtype)[6:]}",
+           "max_abs_err": float((fwd.float() - want_f.float()).abs().max()),
+           "rel_err": rel_err(fwd, want_f), "grad_rel_err": rel_err(bwd, want_b),
+           "denom_equal": bool(torch.equal(denom[:nnz], want_d[:nnz])),
+           "bit_equal": bool(torch.equal(fwd, again)),
+           "function_equal": bool(torch.equal(xr.grad, bwd)),
+           "reference_rel_err": rel_err(fwd, old.detach()),
+           "reference_grad_rel_err": rel_err(bwd, xo.grad),
+           "launches_fwd_bwd": launches}
+    # each direction: the cells' voxel rows read once, the live pool rows
+    # written and read once, every voxel row written once, the indices
+    # (order, start, the live rows' taps) and the window counts once
+    sz = x.element_size()
+    one = (n_in * c * sz + 2 * nnz * c * 4 + n * c * sz
+           + 4 * (n + m + 1 + k * nnz) + 4 * nnz)
+    rec["bound_ms"] = 2 * one / HBM_BYTES_PER_S * 1e3
+    rec["bound_by"] = "bytes"
+
+    def path(aggregate):
+        def run():
+            xp = x.detach().requires_grad_()
+            aggregate(xp).backward(g)
+        return run
+
+    def new_path(xp):
+        return E.elk_aggregate(
+            xp, E.elk_aux_plan(lvl_st, s, 2, cap, inverse=True))
+
+    def old_path(xp):
+        st_p = lvl_st.replace(feats=xp)
+        a, i, cnt = E.voxel_to_aux(st_p, s, cap)
+        return E.aux_to_voxel(a, st_p, i, cnt, 2).feats
+
+    rec["fwd_ms"] = cuda_ms(lambda: kernels.elk_aggregate(x, *args, plan.taps),
+                            iters, f"elk_aggregate {role}")
+    rec["bwd_ms"] = cuda_ms(
+        lambda: kernels.elk_aggregate(g, *args, plan.inv, denom), iters,
+        f"elk_aggregate grad {role}")
+    rec["ms"] = rec["fwd_ms"] + rec["bwd_ms"]
+    rec["plain_ms"] = cuda_ms(lambda: (
+        kernels.elk_aggregate_plain(x, *args, plan.taps),
+        kernels.elk_aggregate_plain(g, *args, plan.inv, want_d)), iters,
+        f"elk_aggregate_plain {role}")
+    rec["path_ms"] = cuda_ms(path(new_path), iters, f"elk path {role}")
+    rec["library_ms"] = cuda_ms(path(old_path), iters,
+                                f"index_add_ path {role}")
+    log(f"elk_aggregate {role} ({rec['shape']}): rel err {rec['rel_err']:.3g}"
+        f", gradient {rec['grad_rel_err']:.3g} against the twin; against the "
+        f"reference composition {rec['reference_rel_err']:.3g} / "
+        f"{rec['reference_grad_rel_err']:.3g}; bit-equal {rec['bit_equal']}, "
+        f"Function {rec['function_equal']}, {launches} launches; ms forward "
+        f"{rec['fwd_ms']:.4f}, backward {rec['bwd_ms']:.4f}, twin "
+        f"{rec['plain_ms']:.4f}, with the plan {rec['path_ms']:.4f}, the "
+        f"index_add_ path with its plan {rec['library_ms']:.4f}; bound "
+        f"{rec['bound_ms']:.4f}")
+    bad = [name for name, ok in (
+        ("forward", rec["rel_err"] < tol), ("gradient", rec["grad_rel_err"] < tol),
+        ("window counts", rec["denom_equal"]), ("two runs", rec["bit_equal"]),
+        ("Function", rec["function_equal"]),
+        ("launches", launches == 2 * kernels.ELK_AGGREGATE_LAUNCHES),
+        ("reference", x.dtype != torch.float32 or (
+            rec["reference_rel_err"] < F32_REL_TOL
+            and rec["reference_grad_rel_err"] < F32_REL_TOL))) if not ok]
+    if bad:
+        raise AssertionError(f"elk_aggregate {role}: {bad}: {rec}")
+    return rec
+
+
+def phase_elk_aggregate(res, ctx, iters=10):
+    import torch
+    from link_tpu_torch.data.collate import to_sparse_tensor
+    from link_tpu_torch.data.semantic_kitti import grid_extent
+    from link_tpu_torch.models.linkunet import DEFAULT_CAPACITIES
+    from link_tpu_torch.ops import elk as E
+    from link_tpu_torch.ops import kernels
+    from link_tpu_torch.sparse.ops import spdownsample
+
+    dev = torch.device("cuda")
+    ext = ctx.get("train_ext") or grid_extent(0.05, batch_size=2)
+    caps = ctx.get("train_caps") or tuple(2 * c for c in DEFAULT_CAPACITIES)
+    batches = ctx.get("train_batches") or _train_batches(1, caps[0], ext)
+    st = to_sparse_tensor(batches[0], device=dev, grid_extent=ext)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    coords, stride, cases = st.coords, 1, []
+    for lvl in range(1, 5):
+        # the level's rows as the model's stride-2 down conv makes them
+        coords, nnz = spdownsample(coords, caps[lvl], 2, 2, stride)
+        stride *= 2
+        n = coords.shape[0]
+        for dtype in ((torch.float32, torch.bfloat16) if lvl == 1
+                      else (torch.float32,)):
+            x = torch.randn((n, ELK_CHANNELS), generator=gen,
+                            device=dev).to(dtype)
+            g = torch.randn((n, ELK_CHANNELS), generator=gen,
+                            device=dev).to(dtype)
+            lvl_st = st.replace(feats=x, coords=coords, nnz=nnz,
+                                stride=(stride,) * 3)
+            cases.append(_elk_case(kernels, E, lvl_st, 3 * stride, caps[lvl],
+                                   x, g, iters, f"train level {lvl}"))
+    res["elk_aggregate_cases"] = cases
+
+
 def _train_golden_model(g, device):
     import torch
     from link_tpu_torch.models.linkunet import ELKUNet
@@ -2770,9 +2917,11 @@ def phase_train_main(res, ctx, timed_steps=6):
     # forward: one gather_conv per K>1 conv; backward: one gather_wgrad per
     # conv and one gather_conv (feature gradient) per conv but the stem's
     # first, whose input needs no gradient; joins: 9 plans + 4 ELK windows,
-    # as on the inference path
+    # as on the inference path; the 4 ELK blocks' aggregation forward and
+    # backward
     want = {"gather_conv": 2 * convs - 1, "gather_wgrad": convs,
-            "sorted_join": 9 + 4}
+            "sorted_join": 9 + 4,
+            "elk_aggregate": 4 * 2 * kernels.ELK_AGGREGATE_LAUNCHES}
     no_grad = [k for k, p in model.named_parameters()
                if p.grad is None or not bool((p.grad != 0).any())]
     still = [k for k, mod in model.named_modules()
@@ -2991,7 +3140,7 @@ def _remat_hold(index: int, batches):
             if isinstance(blk, (ResidualBlock, BasicConvolutionBlock))
             for mod in blk.modules() if isinstance(mod, SparseConv3d)
             and math.prod(mod.kernel_size) > 1)
-    want = dict(runs["plain"]["launches"])
+    want = dp_check.remat_launches(runs["plain"]["launches"])
     want["gather_conv"] += replayed
     times = {"plain": [], "remat": []}
     for it in range(REMAT_TIMED_STEPS):
@@ -6056,6 +6205,8 @@ KERNEL_CASE = {
     # frame 0's call over its 6 tasks: the top 1,000 candidates each,
     # thresh 0.2, cap 83
     "rotated_nms": lambda res: res["rotated_nms_case"],
+    # the training cell's level 1: 124,928 rows of 192 float32 channels
+    "elk_aggregate": lambda res: res["elk_aggregate_cases"][0],
 }
 MAIN_PATHS = {"seg": "launches",
               **{f"seg_{name}": f"family_launches_{name}" for name in FAMILIES},
@@ -6148,7 +6299,8 @@ def main() -> int:
                   phase_det_elk_golden, phase_det_main, phase_det_profile,
                   phase_det_nms_kernels, phase_det_serve,
                   phase_det_flip_golden, phase_det_tta_main,
-                  phase_train_kernels, phase_train_grad, phase_train_golden,
+                  phase_train_kernels, phase_elk_aggregate,
+                  phase_train_grad, phase_train_golden,
                   phase_train_main, phase_train_profile, phase_remat_train,
                   phase_seg_families_train, phase_seg_families_train_grad,
                   phase_seg_files, phase_det_train_kernels,

@@ -5,8 +5,11 @@ segmentation/core/models/semantic_kitti/linkunet.py:94-185), over a
 SparseTensor or, at the det backbone's dense levels, a DenseGrid. The
 position-dependent kernel weight is reparameterized in the
 {sin, cos, cos_x} bases, so the large-window conv factorizes into per-voxel
-modulation -> block pre-aggregation (voxel_to_aux) -> r^3 window sum
-(aux_to_voxel) -> per-voxel demodulation.
+modulation -> block pre-aggregation -> r^3 window sum -> per-voxel
+demodulation. On a SparseTensor the aggregation is `elk_aggregate` over the
+block's plan (`ops/elk.py`: gather-form kernels forward and backward, any
+r), unless the dense-aux gate (odd r, a bounded grid) takes
+`elk_aux_window_dense`.
 
 `det_grouping=True` reproduces the detection TSELKBlock's channel grouping:
 the positional Linear has full width (3, inc) but only its first inc/2
@@ -15,8 +18,8 @@ model's variant (reference linkencoder.py:165): under the cos_x basis the
 positional map reads coords / stride.
 
 On a DenseGrid the cells' grid coordinates stand in for the rows' coords,
-the LayerNorm'd input is re-zeroed at the empty cells, and voxel_to_aux /
-aux_to_voxel collapse to block sums and an r^3 box sum over the block grid,
+the LayerNorm'd input is re-zeroed at the empty cells, and the aggregation
+collapses to block sums and an r^3 box sum over the block grid,
 weighted by the occupied cells per block (`sparse/dense_grid.py`).
 
 The block is rematerializable (`nn/remat.py`), as the seg models' ELK
@@ -35,7 +38,8 @@ from torch import nn
 
 from ..nn import remat
 from ..nn.modules import Linear, SparseConv3d, SparseLayerNorm
-from ..ops.elk import aux_to_voxel, elk_aux_window_dense, use_dense_aux, voxel_to_aux
+from ..ops.elk import (elk_aggregate, elk_aux_plan, elk_aux_window_dense,
+                       use_dense_aux)
 from ..sparse.dense_grid import (DenseGrid, block_broadcast, block_pool,
                                  box_sum, cell_coords_xyz)
 from ..sparse.tensor import SparseTensor
@@ -119,7 +123,7 @@ class ELKBlock(nn.Module):
             f_lin = f_input * pw
             mod = torch.cat([f_input * pw_cos, f_input * pw_sin, f_lin], dim=-1)
         # the f32 trig factors promote mod; the aux pooling moves model-dtype
-        # rows and sums in f32 inside spvoxelize / spdevoxelize
+        # rows and sums in f32
         mod = mod.to(st.feats.dtype)
 
         gs = None if dense else use_dense_aux(st, s, r, mod.shape[-1])
@@ -136,9 +140,10 @@ class ELKBlock(nn.Module):
         elif gs is not None:
             agg = elk_aux_window_dense(mod, st.coords, s, r, gs)
         else:
-            st_mod = st.replace(feats=mod)
-            aux, idx, counts = voxel_to_aux(st_mod, s, self.aux_capacity)
-            agg = aux_to_voxel(aux, st_mod, idx, counts, r).feats
+            plan = elk_aux_plan(st, s, r, self.aux_capacity,
+                                inverse=torch.is_grad_enabled()
+                                and mod.requires_grad)
+            agg = elk_aggregate(mod, plan)
 
         c = self.inc
         if self.baseop == "sin":

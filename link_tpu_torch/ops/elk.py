@@ -1,36 +1,55 @@
 """ELK pre-aggregation ops: voxel <-> aux-block transforms.
 
-PyTorch counterpart of `link_tpu/ops/elk.py`:
+PyTorch counterpart of `link_tpu/ops/elk.py`. The ELK block's sparse path
+(`models/elk.py`, any r) takes
+  * elk_aux_plan: the block's plan, built once: the aux cells (coords
+    divided by s, deduplicated) with their voxels as a CSR from the same
+    sort, the window's self-join over the r^3 offsets through `join_taps`
+    (the `sorted_join` kernel) and, where a gradient is needed, its inverse
+    taps;
+  * elk_aggregate: over that plan, the aux mean pool, the count-weighted
+    mean over each aux cell's r^3 window and the broadcast back to the
+    voxels, in one autograd Function whose forward and backward are the
+    `elk_aggregate` kernel (`ops/kernels.py`): fixed-order float32 gathers,
+    no atomic scatter and no dump row.
+The same result in the reference's composition, over spvoxelize /
+spdevoxelize (PyTorch index_add_ / index_select chains, differentiated by
+autograd):
   * voxel_to_aux: coarsen coords by s, dedup, mean-pool voxel feats into
     aux blocks;
   * aux_to_voxel: count-weighted mean over each aux cell's r^3 window of
-    aux cells, broadcast back to the voxels. The window's self-join runs
-    through `join_taps` (the `sorted_join` kernel); the window sum is
-    a plain gather-sum;
+    aux cells, broadcast back to the voxels.
+Besides:
   * elk_aux_window_dense: the same result on a dense aux grid (odd r only),
-    gated by use_dense_aux;
+    gated by use_dense_aux, which the block takes first;
   * upsample_voxel: broadcast a coarse level's feats onto finer coords
     through each fine voxel's ancestor, one exact join (`sorted_join`).
 
-Inside a rematerialized ELK block (`nn/remat.py`) the aux cells, the
-window's join and the float32 scatter sums are kept for the block's replay,
-which then joins nothing and rounds nothing otherwise than the forward.
-Under a profiler each of these index builds (aux cells, the window's join
-and its inverse, the upsample's table and query, the dense grid's cell
-index) runs inside the range `PLAN`.
+Inside a rematerialized ELK block (`nn/remat.py`) the plan (and in the
+reference composition the aux cells, the window's join and the float32
+scatter sums) is kept for the block's replay, which then joins nothing and
+rounds nothing otherwise than the forward: `elk_aggregate`'s sums run in a
+fixed order, so its replay equals its forward to the bit. Under a profiler
+each of these index builds (aux cells, the window's join and its inverse,
+the upsample's table and query, the dense grid's cell index) runs inside
+the range `PLAN`.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from ..nn import remat
 from ..sparse import coords as coordlib
 from ..sparse import ops as spops
-from ..sparse.conv import mirror_perm
+from ..sparse.conv import invert_map, mirror_perm
 from ..sparse.dense_grid import box_sum
 from ..sparse.tensor import SparseTensor
 from ..utils.profiling import PLAN, span
+from . import kernels
 
 # Dense-aux path budget: bytes of the f32 (cells, C+1) aux grid.
 DENSE_AUX_MAX_BYTES = 256 * 1024 * 1024
@@ -165,6 +184,79 @@ def aux_to_voxel(aux: SparseTensor, x: SparseTensor, idx_query: torch.Tensor,
                        torch.full_like(idx_query, new_feat.shape[0])).long()
     ext = torch.cat([new_feat, new_feat.new_zeros((1, new_feat.shape[1]))])
     return x.replace(feats=ext.index_select(0, safe))   # see spdevoxelize
+
+
+@dataclass
+class ELKAuxPlan:
+    """The ELK block's plan over M aux cells: cell j's voxel rows are
+    order[start[j]:start[j + 1]] (the rows past start[M] belong to no cell),
+    nnz the live cells, taps[k, j] the aux row of tap k of row j's window (or
+    -1), and inv[k, i] the row j with taps[k, j] == i (or -1), built only
+    where a gradient is needed."""
+
+    order: torch.Tensor                 # (N,) int32
+    start: torch.Tensor                 # (M + 1,) int32
+    nnz: torch.Tensor                   # () int32
+    taps: torch.Tensor                  # (K, M) int32
+    inv: Optional[torch.Tensor] = None  # (K, M) int32
+
+
+def elk_aux_plan(x: SparseTensor, s: int, r: int, aux_capacity: int,
+                 inverse: bool) -> ELKAuxPlan:
+    """The plan of `elk_aggregate` over x's coords: aux cells of side s
+    (at most aux_capacity), the r^3 window, and with `inverse` its inverse
+    taps. Its tensors go on a rematerialized block's tape."""
+    offsets = coordlib.kernel_offsets_np((r, r, r), stride=1, dilation=1)
+
+    def cells():
+        with span(PLAN):
+            aux_coords, _, nnz, order, start = coordlib.unique_coords(
+                _div_coords(x.coords, s), aux_capacity, csr=True)
+            # the aux coords come out in key order: the table skips its sort
+            taps = coordlib.join_taps(
+                coordlib.build_table(aux_coords, assume_sorted=True),
+                aux_coords, offsets)
+            return order, start, nnz, taps
+
+    order, start, nnz, taps = remat.saved(cells)
+    inv = None
+    if inverse:
+        def invert():
+            with span(PLAN):
+                return invert_map(taps, aux_capacity)
+        inv = remat.saved(invert)
+    return ELKAuxPlan(order, start, nnz, taps, inv)
+
+
+class _ELKAggregate(torch.autograd.Function):
+    """`elk_aggregate` forward and its feature gradient, both gathers over
+    the plan (the backward over its inverse taps); the window counts are
+    kept for the backward, and the plan is no input of the graph."""
+
+    @staticmethod
+    def forward(ctx, mod, plan):
+        out, denom = kernels.elk_aggregate(mod.contiguous(), plan.order,
+                                           plan.start, plan.nnz, plan.taps)
+        ctx.plan = plan
+        ctx.save_for_backward(denom)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        denom, = ctx.saved_tensors
+        plan = ctx.plan
+        grad, _ = kernels.elk_aggregate(g.contiguous(), plan.order,
+                                        plan.start, plan.nnz, plan.inv, denom)
+        return grad, None
+
+
+def elk_aggregate(mod: torch.Tensor, plan: ELKAuxPlan) -> torch.Tensor:
+    """voxel_to_aux + aux_to_voxel over one plan, differentiable in `mod`
+    (N, C): each voxel gets the count-weighted mean of the aux means over
+    its aux cell's r^3 window, that is the window's voxels' sum over their
+    count; the rows of no cell get zero. Sums in float32, the result in
+    mod's dtype."""
+    return _ELKAggregate.apply(mod, plan)
 
 
 def upsample_voxel(x: SparseTensor, ref_x: SparseTensor) -> SparseTensor:

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, with their plain twins.
 
-Eight kernels. Three are ports of the Pallas kernels of
+Nine kernels. Three are ports of the Pallas kernels of
 `link_tpu/ops/pallas_kernels.py`:
 
   * `sorted_join` (csrc/sorted_join.cu) replaces `pallas_join` (:62-89)
@@ -19,7 +19,7 @@ Eight kernels. Three are ports of the Pallas kernels of
     feature gradient of a window-form submanifold conv, over the plan's own
     windows with W[mirror[t]]^T.
 
-Two have no Pallas counterpart:
+Three have no Pallas counterpart:
 
   * `gather_wgrad` (csrc/gather_wgrad.cu) replaces the XLA product of
     `_gm_bwd_core` (link_tpu/sparse/conv.py:608-622): the weight gradient
@@ -29,6 +29,12 @@ Two have no Pallas counterpart:
     (link_tpu/ops/nms.py:171): the keep mask of rotated BEV NMS over a
     fixed-size candidate set, or over S such sets in one call, on the det
     serving path with device NMS (one call per frame).
+  * `elk_aggregate` (csrc/elk_aggregate.cu) replaces the XLA segment-sum
+    and gather chain of `link_tpu/ops/elk.py` (voxel_to_aux, aux_to_voxel):
+    the ELK block's aux pooling, count-weighted r^3 window sum and
+    broadcast back to the voxels, and their feature gradient, as
+    fixed-order gathers over the block's plan (its cells' voxels as a CSR,
+    the window's taps and their inverse), with no atomics.
 
 Three replace the Mosaic probes of tools/probe_mosaic.py and
 tools/probe_mosaic2.py (csrc/probes.cu): `probe_row_gather`,
@@ -72,7 +78,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sorted_join.cu", "gather_conv.cu", "window_conv.cu",
-           "gather_wgrad.cu", "probes.cu", "rotated_nms.cu")
+           "gather_wgrad.cu", "probes.cu", "rotated_nms.cu",
+           "elk_aggregate.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -1003,6 +1010,116 @@ def rotated_nms_iou(boxes: torch.Tensor,
     _raise_on("rotated_nms_iou",
               fn(boxes.data_ptr(), n, out.data_ptr(), _stream(boxes)))
     return out
+
+
+# --------------------------------------------------------------------------
+# elk_aggregate
+
+ELK_AGGREGATE_LAUNCHES = 2   # kernels of one call: the pool, the window
+
+
+def elk_aggregate_plain(x: torch.Tensor, order: torch.Tensor,
+                        start: torch.Tensor, nnz: torch.Tensor,
+                        taps: torch.Tensor,
+                        denom: Optional[torch.Tensor] = None):
+    """Plain twin of `elk_aggregate`: each position of `order` finds its
+    cell by a search in `start` (the rows of no cell a dump cell M), the
+    cells' sums by one index_add_ over the positions in order, the taps
+    summed one after the other: float32 sums in the kernel's order, rounded
+    to x's dtype where the kernel rounds."""
+    n, c = x.shape
+    k, m = taps.shape
+    dev = x.device
+
+    def rounded(v):
+        return v.to(x.dtype).to(torch.float32)
+
+    counts = (start[1:] - start[:-1]).long()
+    cell = torch.searchsorted(start[1:], torch.arange(
+        n, dtype=torch.int32, device=dev), right=True)
+    rows = order.long()
+    pool = torch.zeros((m + 1, c), dtype=torch.float32, device=dev)
+    pool = pool.index_add_(0, cell, x[rows].to(torch.float32))[:m]
+    if denom is None:
+        cnt = counts.clamp(min=1).to(torch.float32)[:, None]
+        pool = rounded(rounded(pool / cnt) * cnt)
+    else:
+        pool = pool / denom[:, None]
+    live = torch.arange(m, device=dev) < nnz.reshape(())
+    acc = torch.zeros((m, c), dtype=torch.float32, device=dev)
+    wcount = torch.zeros(m, dtype=torch.long, device=dev)
+    for t in range(k):
+        hit = (taps[t] >= 0) & live
+        src = torch.where(hit, taps[t], 0).long()
+        acc += torch.where(hit[:, None], pool[src], 0.0)
+        wcount += torch.where(hit, counts[src], 0)
+    if denom is None:
+        denom = rounded(wcount.to(torch.float32))
+        denom = torch.where(denom == 0, 1.0, denom)
+        acc = rounded(acc) / denom[:, None]
+    out = torch.empty_like(x)
+    out[rows] = torch.cat([acc, acc.new_zeros((1, c))])[cell].to(x.dtype)
+    return out, denom
+
+
+def elk_aggregate(x: torch.Tensor, order: torch.Tensor, start: torch.Tensor,
+                  nnz: torch.Tensor, taps: torch.Tensor,
+                  denom: Optional[torch.Tensor] = None):
+    """The ELK block's aux aggregation over one plan
+    (`ops/elk.elk_aux_plan`), or its feature gradient. x (N, C) float32 or
+    bfloat16; order (N,) the rows in cell order, start (M + 1,) each cell's
+    first position in it, nnz () the live cells, taps (K, M): all int32.
+
+    Forward (denom None): pool[j] = the mean of cell j's rows times their
+    count, and row v of cell j gets sum_k pool[taps[k, j]] / denom[j],
+    denom[j] the window's count of rows (1 where it is 0); the rows past
+    start[M] get zero. Returns (out (N, C) in x's dtype, denom (M,)
+    float32, defined below nnz). Backward (denom the forward's, taps the
+    plan's inverse taps): the cells' sums divided by denom, then the same
+    window sum. Every sum in float32 and in a fixed order; no atomics. The
+    forward rounds to x's dtype where spvoxelize / spdevoxelize round (the
+    mean, its count product, the window sum and count, the quotient), the
+    backward at the end. ELK_AGGREGATE_LAUNCHES launches."""
+    if _on_cpu(x, order, start, nnz, taps):
+        return elk_aggregate_plain(x, order, start, nnz, taps, denom)
+    grad = denom is not None
+    if not grad:
+        denom = torch.empty(taps.shape[1], dtype=torch.float32,
+                            device=x.device)
+    _check_cuda("elk_aggregate", x, order, start, nnz, taps, denom)
+    if x.dtype not in _CONV_DTYPES:
+        raise ValueError(f"elk_aggregate: dtype {x.dtype} (float32 and "
+                         "bfloat16 are supported)")
+    if any(t.dtype != torch.int32 for t in (order, start, nnz, taps)):
+        raise ValueError("elk_aggregate: order, start, nnz and taps must be "
+                         "int32")
+    if x.dim() != 2 or taps.dim() != 2:
+        raise ValueError("elk_aggregate: x (N, C), taps (K, M)")
+    n, c = x.shape
+    k, m = taps.shape
+    if (order.shape != (n,) or start.shape != (m + 1,) or nnz.numel() != 1
+            or denom.shape != (m,) or denom.dtype != torch.float32):
+        raise ValueError("elk_aggregate: order (N,), start (M + 1,), nnz "
+                         "(1,), denom (M,) float32")
+    out = torch.empty_like(x)
+    if n == 0 or c == 0:
+        return out, denom
+    pool = torch.empty((m, c), dtype=torch.float32, device=x.device)
+    vec = 4 if (c % 4 == 0 and x.data_ptr() % 16 == 0
+                and out.data_ptr() % 16 == 0) else 1
+    rc = _entry(elk_aggregate)(
+        x.data_ptr(), _CONV_DTYPES[x.dtype], n, c, order.data_ptr(),
+        start.data_ptr(), m, nnz.data_ptr(), taps.data_ptr(), k,
+        denom.data_ptr(), int(grad), pool.data_ptr(), out.data_ptr(), vec,
+        _stream(x))
+    _raise_on("elk_aggregate", rc)
+    elk_aggregate.launches += ELK_AGGREGATE_LAUNCHES
+    return out, denom
+
+
+_kernel(elk_aggregate, "elk_aggregate.cu",
+        "link_tpu/ops/elk.py:100 (voxel_to_aux) and :124 (aux_to_voxel)",
+        [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P])
 
 
 KERNELS = tuple(KERNELS)

@@ -107,19 +107,24 @@ def add_window_form(plan: ConvPlan, table: coordlib.CoordTable, offsets,
     return _with_window(plan, base_pos, slot, offs_np, quantum)
 
 
-def invert_plan(plan: ConvPlan) -> torch.Tensor:
-    """Inverse kernel map: inv[k, i] = output row j with in_idx[k, j] == i
-    (or -1). Well-defined because j -> in_idx[k, j] is injective per tap."""
-    k, m = plan.in_idx.shape
-    n = plan.in_capacity
-    dev = plan.in_idx.device
-    tgt = torch.where(plan.in_idx >= 0, plan.in_idx,
-                      torch.full_like(plan.in_idx, n)).long()
+def invert_map(in_idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of a kernel map in_idx (K, M) over n input rows: inv[k, i] =
+    the row j with in_idx[k, j] == i (or -1), (K, n) int32. Well-defined
+    because j -> in_idx[k, j] is injective per tap."""
+    k, m = in_idx.shape
+    dev = in_idx.device
+    tgt = torch.where(in_idx >= 0, in_idx, torch.full_like(in_idx, n)).long()
     inv = torch.full((k, n + 1), -1, dtype=torch.int32, device=dev)
     src = torch.arange(m, dtype=torch.int32, device=dev).expand(k, m)
     # valid targets are unique per tap; misses all land in the dump column
     inv.scatter_(1, tgt, src)
     return inv[:, :n].contiguous()
+
+
+def invert_plan(plan: ConvPlan) -> torch.Tensor:
+    """Inverse kernel map: inv[k, i] = output row j with in_idx[k, j] == i
+    (or -1)."""
+    return invert_map(plan.in_idx, plan.in_capacity)
 
 
 def window_chunk(g: int, c: int, itemsize: int) -> int:

@@ -118,7 +118,8 @@ def build_table(coords: torch.Tensor, assume_sorted: bool = False,
                       grid=grid)
 
 
-def unique_coords(coords: torch.Tensor, out_capacity: int):
+def unique_coords(coords: torch.Tensor, out_capacity: int,
+                  csr: bool = False):
     """Deduplicate coordinate rows into a fixed-capacity output.
 
     Returns (out_coords, inverse, out_nnz):
@@ -127,6 +128,10 @@ def unique_coords(coords: torch.Tensor, out_capacity: int):
       * inverse:    (N,) int32, for each input row the slot of its unique
         coord, or -1 for padding/overflowed rows;
       * out_nnz:    () int32, number of unique coords (clamped).
+    With `csr=True` also (order, start), the input rows grouped by slot
+    from the same sort: slot j's rows are order[start[j]:start[j + 1]], in
+    input order (the sort is stable), and the rows of no slot follow
+    start[out_capacity]; order (N,) and start (out_capacity + 1,) int32.
     """
     n = coords.shape[0]
     dev = coords.device
@@ -156,7 +161,14 @@ def unique_coords(coords: torch.Tensor, out_capacity: int):
     inv_vals = torch.where(in_range, slot, torch.full_like(slot, -1))
     inverse = torch.empty(n, dtype=torch.int32, device=dev)
     inverse[s_idx] = inv_vals.to(torch.int32)
-    return out_coords, inverse, out_nnz
+    if not csr:
+        return out_coords, inverse, out_nnz
+    # the in-range rows come first, their slots non-decreasing: each slot's
+    # first position is a lower bound among them
+    ordered = torch.where(in_range, slot, out_capacity)
+    start = torch.searchsorted(ordered, torch.arange(
+        out_capacity + 1, dtype=torch.int64, device=dev)).to(torch.int32)
+    return out_coords, inverse, out_nnz, s_idx.to(torch.int32), start
 
 
 @functools.lru_cache(maxsize=None)

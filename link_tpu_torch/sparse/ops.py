@@ -6,6 +6,12 @@ index-adds into a table with one extra dump row, which takes the misses
 `spdevoxelize` with an inverse map has a gather-form backward of its own,
 and so has the float32 `segment_sum`, which keeps its value for a
 rematerialized block's replay (`nn/remat.py`).
+
+Their callers are the point ops (`ops/point.py`), the BEV and reader
+poolings, the ELK block's dense aux path (`ops/elk.elk_aux_window_dense`)
+and the reference composition `ops/elk.voxel_to_aux` / `aux_to_voxel`. The
+ELK block's sparse aux path takes none of them: it runs
+`ops/elk.elk_aggregate`, gather-form kernels over its own plan.
 """
 
 from __future__ import annotations

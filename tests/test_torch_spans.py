@@ -6,8 +6,9 @@ under torch.profiler, and the benchmark readers that read them.
   two of the conv and plan ranges;
 - a tiny `ELKBlock` beside a sibling conv branch, summed as
   `linkunet.encode` does, plain and rematerialized: the block's
-  `index_add_` / `index_select` backward ops (and the replay) lie inside
-  `elk/backward`, the sibling's convs' backward outside it;
+  aggregation backward (its autograd node, its twin's call and
+  operations) and the replay lie inside `elk/backward`, the sibling's
+  convs' backward outside it;
 - a tiny ELKUNet training step: every join site inside `sparse/plan`, no
   conv range inside or around a plan range, the loss in `loss/*`, and no
   operation in two of the conv, plan and loss ranges;
@@ -126,7 +127,9 @@ def test_conv_twins_run_in_the_range_of_their_role(form, monkeypatch):
 
 @pytest.mark.parametrize("rematerialized", [False, True])
 def test_elk_backward_range_holds_the_block_and_not_its_sibling(
-        rematerialized):
+        rematerialized, monkeypatch):
+    monkeypatch.setattr(kernels, "elk_aggregate",
+                        _named("twin/elk_aggregate", kernels.elk_aggregate))
     coords, n = _coords(1)
     cap = coords.shape[0]
     gen = torch.Generator().manual_seed(1)
@@ -152,10 +155,15 @@ def test_elk_backward_range_holds_the_block_and_not_its_sibling(
     assert len(elk_b) == 1 and _within(elk_b[0], bwd)
     elk_b = elk_b[0]
     in_bwd = [e for e in ev if _within(e, bwd)]
-    adds = [e for e in in_bwd if e[0] == "aten::index_add_"]
-    picks = [e for e in in_bwd if e[0] == "aten::index_select"]
-    assert adds and picks
-    assert all(_within(e, elk_b) for e in adds + picks)
+    # the aggregation's backward, its autograd node and its twin's call
+    # with the twin's operations, and a replay's forward twin call
+    nodes = [e for e in in_bwd if e[0].startswith("autograd::")
+             and e[0].endswith("_ELKAggregateBackward")]
+    twins = [e for e in in_bwd if e[0] == "twin/elk_aggregate"]
+    ops = [e for e in in_bwd if e[0].startswith("aten::")
+           and any(_within(e, t) for t in twins)]
+    assert len(nodes) == 1 and len(twins) == 1 + rematerialized and ops
+    assert all(_within(e, elk_b) for e in nodes + twins + ops)
     # the block's local conv inside, the sibling's, the stem's and the
     # tail's outside (the stem's input needs no gradient: no dgrad)
     for role, total in ((P.CONV_WGRAD, 4), (P.CONV_DGRAD, 3)):
