@@ -52,7 +52,7 @@ Phases, in order (any failure raises and the script exits non-zero):
                  point-level mIoU and ms per scan;
   6. det_kernels `window_conv` and the three modes of `sorted_join` against
                  their twins at the det path's shapes (163,840-row level 0
-                 and 81,920-row level 1 of one synthetic 160k-voxel
+                 and 163,840-row level 1 of one synthetic 160k-voxel
                  nuScenes frame, the down plan between them, and level 0
                  cut to a row count that is no multiple of 16), the join
                  also on a shuffled table, unsorted base rows, padding
@@ -221,7 +221,7 @@ Phases, in order (any failure raises and the script exits non-zero):
                  reference's loss curve;
  14e. det_train_main det_train's default recipe at full width:
                  CenterPoint-ELKv3 f32, 2 synthetic frames a step at
-                 capacities (327,680, 163,840, 81,920, 40,960), one-cycle
+                 capacities (327,680, 327,680, 163,840, 81,920), one-cycle
                  Adam; 1 warm and 6 timed steps: ms per step, frames/s,
                  launches of each kernel in one step (window_conv and
                  gather_conv forward and backward apart), losses, peak
@@ -2322,15 +2322,15 @@ def _tta_hold(res, ctx):
     of each group within DET_GOLDEN_REL_TOL."""
     import torch
     from link_tpu_torch.data import det_pipeline as dp
+    from link_tpu_torch.models.scn import det_capacities
     from link_tpu_torch.models.voxelnet import VoxelNet
     from link_tpu_torch.tools import det_test
     cap = det_test.CAPACITY
     group = _hold_frame()
 
     def model(b):
-        c = cap * b
         return VoxelNet(batch_size=b, grid_shape=det_test.GRID,
-                        capacities=(c, c // 2, c // 4, c // 8),
+                        capacities=det_capacities(cap, b),
                         device="cuda",
                         generator=torch.Generator().manual_seed(0)).eval()
 
@@ -3590,7 +3590,7 @@ sys.exit(code)
 # detection training
 
 
-DET_TRAIN_CAPS = (327680, 163840, 81920, 40960)   # det_train's default recipe
+DET_TRAIN_CAPS = (327680, 327680, 163840, 81920)  # det_train's default recipe
 DET_TRAIN_TINY_CAPS = (8192, 4096, 2048, 1024)    # tests/test_det_train_step.py
 DET_TRAIN_GOLDEN = os.path.join(HERE, "tests", "goldens", "det_train_ab.npz")
 DET_TRAIN_ZERO_LEAF = 1e-7   # a leaf whose largest gradient is below this
@@ -4020,7 +4020,7 @@ class ConvLaunchSplit:
 def phase_det_train_main(res, ctx, timed_steps=6):
     """det_train's default recipe at full width: CenterPoint-ELKv3 f32,
     one-cycle Adam, 2 synthetic frames a step at capacities (327,680,
-    163,840, 81,920, 40,960) on the 1440 x 1440 x 40 grid; 1 warm and
+    327,680, 163,840, 81,920) on the 1440 x 1440 x 40 grid; 1 warm and
     `timed_steps` timed steps."""
     import torch
     from link_tpu_torch.models.voxelnet import VoxelNet
@@ -4394,7 +4394,7 @@ def phase_dp_train(res, ctx):
 def phase_det_plain(res, ctx, rounds=3):
     """The plain CenterPoint VoxelNet (`elk=False`, backbone
     `SpMiddleResNetFHD`) at full width, seed-0 weights, det_test's
-    capacities (163,840 / 81,920 / 40,960 / 20,480): the f32 forward and
+    capacities (163,840 / 163,840 / 81,920 / 40,960): the f32 forward and
     decode card against CPU (`_card_cpu_hold`) on the hold frame, whose
     every level fits its capacity; under a user's TF32 flags bf16 forward
     + decode + device NMS on the det frames (launches against the sparse
@@ -4739,11 +4739,11 @@ def _det_model(level=None, dcn=False, dtype="float32", elk=True,
     """CenterPoint-ELKv3 (`elk=False`: the plain CenterPoint VoxelNet) with
     seed-0 weights, eval mode, batch 1 at det_test's capacity."""
     import torch
+    from link_tpu_torch.models.scn import det_capacities
     from link_tpu_torch.models.voxelnet import VoxelNet
     from link_tpu_torch.tools import det_test
-    c = det_test.CAPACITY
     return VoxelNet(batch_size=1, grid_shape=det_test.GRID,
-                    capacities=(c, c // 2, c // 4, c // 8), elk=elk,
+                    capacities=det_capacities(det_test.CAPACITY, 1), elk=elk,
                     dtype=dtype, dcn_head=dcn, dense_from_level=level,
                     device=device,
                     generator=torch.Generator().manual_seed(0)).eval()

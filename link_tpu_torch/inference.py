@@ -21,6 +21,7 @@ import torch
 from . import native
 from .data import det_pipeline as dp
 from .models.center_head import decode_boxes, device_nms
+from .models.scn import det_capacities
 from .models.voxelnet import VoxelNet
 from .ops.nms import rotate_nms_pcdet
 from .utils.config import load_py_config
@@ -164,8 +165,7 @@ class SingleFramePredictor:
             torch.Generator().manual_seed(seed)
         self.model = VoxelNet(num_input_features=5, batch_size=1,
                               grid_shape=tuple(grid_shape),
-                              capacities=(capacity, capacity // 2,
-                                          capacity // 4, capacity // 8),
+                              capacities=det_capacities(capacity, 1),
                               dtype=dtype, device=device, generator=gen)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)

@@ -153,15 +153,35 @@ def reg_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
     return loss.sum(dim=(0, 1))
 
 
+_CODE_WEIGHTS: Dict = {}
+
+
+def _code_weights(code_weights, device: torch.device) -> torch.Tensor:
+    """The code weights as a float32 tensor on `device`, copied there once
+    per process and not on every step (a pageable host copy a task)."""
+    key = (tuple(float(w) for w in code_weights), str(device))
+    if key not in _CODE_WEIGHTS:
+        _CODE_WEIGHTS[key] = torch.tensor(key[0], dtype=torch.float32,
+                                          device=device)
+    return _CODE_WEIGHTS[key]
+
+
 def center_head_loss(preds: List[Dict[str, torch.Tensor]], example: Dict,
                      weight: float = 0.25, code_weights=CODE_WEIGHTS):
     """center_head.py:252-293. `preds` the head's per-task NHWC maps;
     `example` per-task stacked targets (`det_pipeline.det_targets`): hm[t]
     (B, H, W, C_t), anno_box[t] (B, M, 10), ind / mask / cat[t] (B, M).
-    Returns (loss, logs) with logs {hm_loss_t, loc_loss_t, loss}."""
+    Returns (loss, logs) with logs {hm_loss_t, loc_loss_t, loss}.
+
+    The maps are taken in float32 whatever the compute dtype, as the
+    decode takes them. In bfloat16, 1 - 1e-4 rounds to 1, so the clamp
+    would let a saturated heatmap logit through to log(1 - 1) = -inf (the
+    JAX package's loss computes in the maps' dtype and does so; seen on
+    full-size driving frames at initialization)."""
     total = 0.0
     logs = {}
     for t, pd in enumerate(preds):
+        pd = {k: v.float() for k, v in pd.items()}
         hm = torch.clamp(torch.sigmoid(pd["hm"]), 1e-4, 1 - 1e-4)
         hm_loss = fast_focal_loss(hm, example["hm"][t], example["ind"][t],
                                   example["mask"][t], example["cat"][t])
@@ -169,9 +189,8 @@ def center_head_loss(preds: List[Dict[str, torch.Tensor]], example: Dict,
                           pd["rot"]], dim=-1)
         box_loss = reg_loss(anno, example["mask"][t], example["ind"][t],
                             example["anno_box"][t])
-        cw = torch.tensor(code_weights, dtype=box_loss.dtype,
-                          device=box_loss.device)
-        loc_loss = torch.sum(box_loss * cw)
+        loc_loss = torch.sum(box_loss * _code_weights(code_weights,
+                                                      box_loss.device))
         total = total + hm_loss + weight * loc_loss
         logs[f"hm_loss_{t}"] = hm_loss
         logs[f"loc_loss_{t}"] = loc_loss

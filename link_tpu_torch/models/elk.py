@@ -78,16 +78,20 @@ class ELKBlock(nn.Module):
         self.norm = SparseLayerNorm(inc, device=device)
         self.norm_local = SparseLayerNorm(inc, device=device)
 
-    def forward(self, st: SparseTensor, s: int, r: int) -> SparseTensor:
+    def forward(self, st: SparseTensor, s: int, r: int,
+                dropped: Optional[torch.Tensor] = None) -> SparseTensor:
+        """`dropped`: a device counter the aux cells past `aux_capacity`
+        are added to (the sparse aux path's only drop)."""
         with span(ELK_FWD):
             bwd = BackwardSpan(ELK_BWD, st.feats)
             if not bwd.on:
-                return self._block(st, s, r)
-            out = self._block(st.replace(feats=bwd.x), s, r)
+                return self._block(st, s, r, dropped)
+            out = self._block(st.replace(feats=bwd.x), s, r, dropped)
             return out.replace(feats=bwd.out(out.feats))
 
     @remat.rematerializable
-    def _block(self, st: SparseTensor, s: int, r: int) -> SparseTensor:
+    def _block(self, st: SparseTensor, s: int, r: int,
+               dropped: Optional[torch.Tensor] = None) -> SparseTensor:
         dense = isinstance(st, DenseGrid)
         f_input = self.pre_mix(st.feats)
         if dense:
@@ -142,7 +146,7 @@ class ELKBlock(nn.Module):
         else:
             plan = elk_aux_plan(st, s, r, self.aux_capacity,
                                 inverse=torch.is_grad_enabled()
-                                and mod.requires_grad)
+                                and mod.requires_grad, dropped=dropped)
             agg = elk_aggregate(mod, plan)
 
         c = self.inc

@@ -44,7 +44,21 @@ from ..sparse.spconv_engine import (ensure_level_table, spconv3d,
 from ..sparse.tensor import SparseTensor, make_sparse_tensor
 from .elk import ELKBlock
 
-DET_CAPACITIES = (163840, 81920, 40960, 20480)
+
+def det_capacities(level0_per_frame: int, frames: int) -> Tuple[int, ...]:
+    """The row capacities of the four backbone levels for a batch of
+    `frames` frames of at most `level0_per_frame` voxels each:
+    (c, c, c // 2, c // 4) with c = level0_per_frame * frames. A strided
+    down's output set can hold as many rows as its input, and on 10-sweep
+    frames of a driving ego level 1 reaches 0.96 of level 0, so level 1
+    keeps level 0's capacity and each level above halves it. The ELK aux
+    cells of a level take that level's capacity. Rows past a capacity are
+    dropped and counted (`SpMiddleResNetFHDELKv3.rows_dropped`)."""
+    c = int(level0_per_frame) * int(frames)
+    return (c, c, c // 2, c // 4)
+
+
+DET_CAPACITIES = det_capacities(163840, 1)
 DET_NORM = dict(eps=1e-3, momentum=0.01)
 PLANES = (16, 32, 64, 128)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,7 +123,9 @@ class SpConvDown(nn.Sequential):
         self.out_capacity = out_capacity
         self.batch_size = batch_size
 
-    def forward(self, x: SparseTensor, in_shape):
+    def forward(self, x: SparseTensor, in_shape, dropped=None):
+        """`dropped`: a device counter the output rows past `out_capacity`
+        are added to."""
         if isinstance(x, DenseGrid):
             y = dense_spconv(x, self[0].engine_kernel(), self.kernel_size,
                              self.stride, self.padding)
@@ -120,7 +136,8 @@ class SpConvDown(nn.Sequential):
                                     self.kernel_size, in_shape,
                                     stride=self.stride, padding=self.padding,
                                     out_capacity=self.out_capacity,
-                                    batch_size=self.batch_size)
+                                    batch_size=self.batch_size,
+                                    dropped=dropped)
         y = self[1](y)
         return y.replace(feats=torch.relu(y.feats)), out_shape
 
@@ -194,6 +211,32 @@ class SpMiddleResNetFHDELKv3(nn.Module):
                                      (0, 0, 0),
                                      out_capacity=self.capacities[3],
                                      batch_size=batch_size, **kw)
+        self._dropped: Optional[torch.Tensor] = None
+
+    def _drop_counter(self, device) -> torch.Tensor:
+        """The per-level count of rows dropped at a capacity, on `device`:
+        made once (not a buffer, so no state_dict or replica collective
+        sees it), then added to on the device without a sync."""
+        if self._dropped is None or self._dropped.device != device:
+            # a normal tensor even when made under inference_mode, so that
+            # a later training step can add to it
+            with torch.inference_mode(False):
+                self._dropped = torch.zeros(4, dtype=torch.int64,
+                                            device=device)
+        return self._dropped
+
+    def rows_dropped(self) -> Tuple[int, ...]:
+        """Rows dropped by level since the model was made (or
+        `reset_rows_dropped`): level l's strided down (l >= 1; the extra z
+        conv at level 3) and its ELK aux cells past `capacities[l]`. Reads
+        the device counter, so it waits for the device."""
+        if self._dropped is None:
+            return (0,) * 4
+        return tuple(int(v) for v in self._dropped.tolist())
+
+    def reset_rows_dropped(self) -> None:
+        if self._dropped is not None:
+            self._dropped.zero_()
 
     def forward(self, voxel_features: torch.Tensor, coords: torch.Tensor,
                 nnz: torch.Tensor, input_shape: Tuple[int, int, int]):
@@ -202,13 +245,15 @@ class SpMiddleResNetFHDELKv3(nn.Module):
         them. Returns the (B, C * D, H, W) BEV map."""
         shape = (input_shape[0], input_shape[1], input_shape[2] + 1)
         feats = voxel_features.to(self.dtype)
+        dropped = self._drop_counter(feats.device)
         st = make_sparse_tensor(feats, coords, nnz=nnz, base_sorted=True,
                                 device=feats.device)
         ensure_level_table(st, shape, self.batch_size)
         st = self.conv_input(st)
         for lvl in range(1, 5):
             if lvl > 1:
-                st, shape = getattr(self, f"down{lvl}")(st, shape)
+                st, shape = getattr(self, f"down{lvl}")(st, shape,
+                                                        dropped[lvl - 1])
                 if isinstance(st, SparseTensor):
                     ensure_level_table(st, shape, self.batch_size)
             # to the dense grid after level L's strided down, on the
@@ -222,10 +267,11 @@ class SpMiddleResNetFHDELKv3(nn.Module):
                 st = y
                 continue
             y = getattr(self, f"conv{lvl}_tail")(y)
-            lk = getattr(self, f"elk{lvl}")(st, self.block_sz, self.elk_r)
+            lk = getattr(self, f"elk{lvl}")(st, self.block_sz, self.elk_r,
+                                            dropped[lvl - 1])
             lk = getattr(self, f"elk{lvl}_tail")(lk)
             st = y.replace(feats=torch.relu(y.feats + lk.feats))
-        st, shape = self.extra_conv(st, shape)
+        st, shape = self.extra_conv(st, shape, dropped[3])
         if isinstance(st, DenseGrid):
             return dense_to_bev(st)
         return to_dense_bev(st, shape, self.batch_size)

@@ -9,11 +9,12 @@ readers/voxel_encoder.py:8-25), for serving and training
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..utils.profiling import BEV_BWD, BEV_FWD, BackwardSpan, span
 from .center_head import NUSC_TASKS, CenterHead
 from .dcn import FeatureAdaption
 from .rpn import RPN
@@ -26,6 +27,18 @@ def voxel_feature_extractor_v3(voxels: torch.Tensor,
     voxel's points (VoxelFeatureExtractorV3)."""
     s = voxels.sum(dim=1)
     return s / num_points.clamp(min=1).to(voxels.dtype)[:, None]
+
+
+def map_head_maps(preds: List[Dict[str, torch.Tensor]], fn: Callable):
+    """`fn(*maps)` over every map of the head's per-task dicts, its
+    results put back in their places."""
+    keys = [(t, k) for t, d in enumerate(preds) for k in d]
+    maps = fn(*(preds[t][k] for t, k in keys))
+    maps = maps if isinstance(maps, tuple) else (maps,)
+    out = [dict(d) for d in preds]
+    for (t, k), v in zip(keys, maps):
+        out[t][k] = v
+    return out
 
 
 class VoxelNet(nn.Module):
@@ -90,6 +103,27 @@ class VoxelNet(nn.Module):
         (B, C, H, W) output."""
         feats = voxel_feature_extractor_v3(voxels, num_points)
         bev = self.backbone(feats, coords, nnz, self.grid_shape)
-        x = self.neck(bev)
-        preds = self.bbox_head(x)
+        with span(BEV_FWD):
+            bwd = BackwardSpan(BEV_BWD, bev)
+            x = self.neck(bwd.x)
+            preds = self.bbox_head(x)
+            if bwd.on:
+                preds = map_head_maps(preds, bwd.out)
         return (preds, x) if self.return_bev else preds
+
+    def rows_dropped(self):
+        """The backbone's rows dropped at a capacity, by level."""
+        return self.backbone.rows_dropped()
+
+
+def report_rows_dropped(model: VoxelNet) -> tuple:
+    """Prints the rows the backbone's capacities dropped, by level, with a
+    warning when any was; returns them."""
+    dropped = model.rows_dropped()
+    if any(dropped):
+        print(f"WARNING: rows dropped at the level capacities "
+              f"{model.backbone.capacities}: {list(dropped)} by level",
+              flush=True)
+    else:
+        print(f"rows dropped by level: {list(dropped)}", flush=True)
+    return dropped

@@ -202,16 +202,20 @@ class ELKAuxPlan:
 
 
 def elk_aux_plan(x: SparseTensor, s: int, r: int, aux_capacity: int,
-                 inverse: bool) -> ELKAuxPlan:
+                 inverse: bool,
+                 dropped: Optional[torch.Tensor] = None) -> ELKAuxPlan:
     """The plan of `elk_aggregate` over x's coords: aux cells of side s
-    (at most aux_capacity), the r^3 window, and with `inverse` its inverse
-    taps. Its tensors go on a rematerialized block's tape."""
+    (at most aux_capacity; the cells past it are added to the device
+    counter `dropped`, when given, once: a replay reads the plan back), the
+    r^3 window, and with `inverse` its inverse taps. Its tensors go on a
+    rematerialized block's tape."""
     offsets = coordlib.kernel_offsets_np((r, r, r), stride=1, dilation=1)
 
     def cells():
         with span(PLAN):
             aux_coords, _, nnz, order, start = coordlib.unique_coords(
-                _div_coords(x.coords, s), aux_capacity, csr=True)
+                _div_coords(x.coords, s), aux_capacity, csr=True,
+                dropped=dropped)
             # the aux coords come out in key order: the table skips its sort
             taps = coordlib.join_taps(
                 coordlib.build_table(aux_coords, assume_sorted=True),

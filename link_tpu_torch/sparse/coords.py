@@ -119,7 +119,7 @@ def build_table(coords: torch.Tensor, assume_sorted: bool = False,
 
 
 def unique_coords(coords: torch.Tensor, out_capacity: int,
-                  csr: bool = False):
+                  csr: bool = False, dropped: Optional[torch.Tensor] = None):
     """Deduplicate coordinate rows into a fixed-capacity output.
 
     Returns (out_coords, inverse, out_nnz):
@@ -132,6 +132,8 @@ def unique_coords(coords: torch.Tensor, out_capacity: int,
     from the same sort: slot j's rows are order[start[j]:start[j + 1]], in
     input order (the sort is stable), and the rows of no slot follow
     start[out_capacity]; order (N,) and start (out_capacity + 1,) int32.
+    With `dropped`, an int64 device counter, the unique coords past
+    out_capacity are added to it on the device (no sync).
     """
     n = coords.shape[0]
     dev = coords.device
@@ -146,7 +148,10 @@ def unique_coords(coords: torch.Tensor, out_capacity: int,
     is_new = ((s_hi != prev_hi) | (s_lo != prev_lo)) & valid
 
     slot = torch.cumsum(is_new.to(torch.int64), 0) - 1
-    out_nnz = torch.clamp(is_new.sum(), max=out_capacity).to(torch.int32)
+    total = is_new.sum()
+    out_nnz = torch.clamp(total, max=out_capacity).to(torch.int32)
+    if dropped is not None:
+        dropped.add_(total - out_nnz)
 
     in_range = valid & (slot < out_capacity)
     dump = torch.full_like(slot, out_capacity)

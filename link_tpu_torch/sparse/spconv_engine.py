@@ -51,12 +51,14 @@ def _tap_offsets(kernel_size) -> np.ndarray:
 
 
 def spconv_downsample(coords: torch.Tensor, kernel_size, stride, padding,
-                      out_shape, out_capacity: int):
+                      out_shape, out_capacity: int,
+                      dropped: Optional[torch.Tensor] = None):
     """The spconv output coordinate set: every j reachable from an input
     voxel through some tap, inside out_shape. Returns (out_coords,
     out_nnz), rows in pack-key (b, z, y, x) order, the first
     `out_capacity` of them kept: the set, order and count of
-    `link_tpu`'s `_pool_downsample`.
+    `link_tpu`'s `_pool_downsample`. The rows past `out_capacity` are
+    added to the device counter `dropped`, when given.
 
     Formulation: each input reaches at most ceil(k / s) outputs per axis
     (2^3 = 8 candidates for k3 s2), so the candidates are enumerated per
@@ -81,7 +83,8 @@ def spconv_downsample(coords: torch.Tensor, kernel_size, stride, padding,
         inv = torch.full_like(coords, coordlib.INVALID_COORD)
         cands.append(torch.where(ok, torch.cat([j, coords[:, 3:]], 1), inv))
     out_coords, _, out_nnz = coordlib.unique_coords(torch.cat(cands),
-                                                    out_capacity)
+                                                    out_capacity,
+                                                    dropped=dropped)
     return out_coords, out_nnz
 
 
@@ -110,10 +113,13 @@ def spconv3d(x: SparseTensor, weight: torch.Tensor,
              stride: Union[int, Tuple[int, ...]] = 1,
              padding: Union[int, Tuple[int, ...]] = 0,
              out_capacity: Optional[int] = None,
-             batch_size: Optional[int] = None):
+             batch_size: Optional[int] = None,
+             dropped: Optional[torch.Tensor] = None):
     """Strided spconv conv. `in_shape` / the returned out_shape are the
     level grids' (x, y, z) extents. Weight (K, Ci, Co) with taps in
-    `_tap_offsets` order. Returns (SparseTensor, out_shape)."""
+    `_tap_offsets` order; the output rows past `out_capacity` are added to
+    the device counter `dropped`, when given, as the plan is built.
+    Returns (SparseTensor, out_shape)."""
     ks = coordlib.make_ntuple(kernel_size)
     st = coordlib.make_ntuple(stride)
     pd = coordlib.make_ntuple(padding)
@@ -124,7 +130,7 @@ def spconv3d(x: SparseTensor, weight: torch.Tensor,
     if plan is None:
         with span(PLAN):
             out_coords, out_nnz = spconv_downsample(x.coords, ks, st, pd,
-                                                    out_shape, cap)
+                                                    out_shape, cap, dropped)
             # share the level's key table with the SubM convs (conv3d caches
             # it under the same key)
             tkey = ("table", x.stride)

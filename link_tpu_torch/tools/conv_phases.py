@@ -178,8 +178,8 @@ def build_window() -> ctypes.CDLL:
 
 def det_window_plans(device):
     """The window-form SubM plans of det levels 0 and 1 of one synthetic
-    160k-voxel nuScenes frame (163,840 and 81,920 rows), as `chip_smoke.py`
-    builds them."""
+    160k-voxel nuScenes frame (163,840 rows each, `DET_CAPACITIES`), as
+    `chip_smoke.py` builds them."""
     from ..data import det_pipeline as dp
     from ..data.nuscenes import SyntheticNuScenes
     from ..models.scn import DET_CAPACITIES

@@ -65,7 +65,8 @@ from ..inference import (DEFAULT_TEST_CFG, config_dcn_head,
                          config_test_cfg, host_nms, masked_rows)
 from ..models import two_stage as TS
 from ..models.center_head import decode_boxes, device_nms
-from ..models.voxelnet import VoxelNet
+from ..models.scn import det_capacities
+from ..models.voxelnet import VoxelNet, report_rows_dropped
 
 TEST_CFG = dict(DEFAULT_TEST_CFG)   # the JAX tool's TEST_CFG
 GRID = (1440, 1440, 40)             # the grid of 0.075 m voxels
@@ -158,11 +159,11 @@ class DetTest:
                                     weights_only=True)["model"]
         gen = None if state_dict is not None else \
             torch.Generator().manual_seed(0)
-        cap = self.cap
         self.two_stage = bool(args.two_stage or args.two_stage_checkpoint)
         self.model = VoxelNet(num_input_features=5, batch_size=self.n_batch,
                               grid_shape=GRID,
-                              capacities=(cap, cap // 2, cap // 4, cap // 8),
+                              capacities=det_capacities(CAPACITY,
+                                                        self.n_batch),
                               dtype=args.dtype,
                               dcn_head=(args.dcn_head
                                         or config_dcn_head(args.config)),
@@ -318,6 +319,7 @@ def evaluate(args) -> dict:
               f"({1 / np.mean(mid):.2f} samples/s)")
     print(f"{n} frames, {np.mean(latencies) * 1e3:.1f} ms per frame "
           f"(forward, decode, NMS on the card, copy)", flush=True)
+    dropped = report_rows_dropped(run.model)
 
     if args.save_vis:
         os.makedirs(os.path.dirname(args.save_vis) or ".", exist_ok=True)
@@ -337,7 +339,8 @@ def evaluate(args) -> dict:
         for c, ap in metrics["class_aps"].items():
             print(f"  {c}: AP {ap * 100:.1f}")
     out = {"samples": samples,
-           "ms_per_frame": [t * 1e3 for t in latencies], "metrics": metrics}
+           "ms_per_frame": [t * 1e3 for t in latencies], "metrics": metrics,
+           "rows_dropped": list(dropped)}
     if run.two_stage:
         out["refine_ms"] = run.refine_ms
     return out

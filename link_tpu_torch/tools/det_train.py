@@ -23,7 +23,8 @@ Usage:
       [--config configs/nusc/voxelnet/...elkv3.py] [--epochs N] \
       [--samples-per-device 2] [--voxel-capacity 163840] [--run-dir D] \
       [--resume [auto|path]] [--stop-after-epoch N] \
-      [--dense-from-level L] [--device cpu] [--coordinator A \
+      [--dense-from-level L] [--dtype bfloat16] [--device cpu] \
+      [--coordinator A \
       --num-processes W --process-id R] [--dist-backend nccl|gloo]
 
 As in the JAX tool, --config sets the recipe, its total_epochs included
@@ -52,7 +53,8 @@ from ..data.loader import PrefetchLoader, epoch_indices, shard_indices
 from ..data.gt_aug import DataBaseSampler
 from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
 from ..inference import config_dcn_head
-from ..models.voxelnet import VoxelNet
+from ..models.scn import det_capacities
+from ..models.voxelnet import VoxelNet, report_rows_dropped
 from ..parallel import multihost as mh
 from ..train import det_trainer as DT
 from ..train import schedules
@@ -93,6 +95,10 @@ def parse_args(argv=None):
                     help="the voxel grid of the real data (x y z)")
     ap.add_argument("--dense-from-level", type=int, default=None,
                     help="backbone levels >= L on a masked dense grid")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="compute dtype of backbone, neck and head "
+                         "(parameters and optimizer state stay float32)")
     ap.add_argument("--resume", nargs="?", const="auto", default=None,
                     help="checkpoint path, or bare/`auto` to continue from "
                          "the run dir's latest.pt if one exists")
@@ -144,6 +150,19 @@ def train_dataset(args, world: int = 1):
                             db_sampler=db_sampler), tuple(args.grid))
 
 
+def make_model(args, grid, device, generator=None) -> VoxelNet:
+    """The VoxelNet that `main` trains: --samples-per-device frames a step
+    of at most --voxel-capacity voxels each, the level capacities of
+    `det_capacities`."""
+    spd = args.samples_per_device
+    return VoxelNet(num_input_features=5, batch_size=spd, grid_shape=grid,
+                    capacities=det_capacities(args.voxel_capacity, spd),
+                    dtype=args.dtype,
+                    dcn_head=config_dcn_head(args.config),
+                    dense_from_level=args.dense_from_level, device=device,
+                    generator=generator)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     mesh = mh.init_from_args(args)
@@ -158,12 +177,8 @@ def main(argv=None) -> int:
     train_ds, grid = train_dataset(args, world)
 
     cap = args.voxel_capacity * spd
-    model = VoxelNet(num_input_features=5, batch_size=spd, grid_shape=grid,
-                     capacities=tuple(max(1024, cap // f)
-                                      for f in (1, 2, 4, 8)),
-                     dcn_head=config_dcn_head(args.config),
-                     dense_from_level=args.dense_from_level, device=device,
-                     generator=torch.Generator().manual_seed(0))
+    model = make_model(args, grid, device,
+                       generator=torch.Generator().manual_seed(0))
     steps_per_epoch = max(1, len(train_ds) // world_spd)
     total_steps = epochs * steps_per_epoch
     lr_fn, mom_fn = schedules.one_cycle(
@@ -249,6 +264,8 @@ def main(argv=None) -> int:
                 print(f"stopping after epoch {epoch} (--stop-after-epoch)",
                       flush=True)
             break
+    if is_main:
+        report_rows_dropped(model)
     if mesh.group is not None:
         torch.distributed.destroy_process_group()
     return 0

@@ -45,6 +45,7 @@ from ..data.nuscenes import NuScenesDataset, SyntheticNuScenes
 from ..inference import DEFAULT_TEST_CFG, masked_rows
 from ..models import two_stage as TS
 from ..models.center_head import decode_boxes
+from ..models.scn import det_capacities
 from ..models.voxelnet import VoxelNet
 from ..ops.nms import rotate_nms_pcdet
 from ..train import det_trainer as DT
@@ -94,11 +95,10 @@ def make_dataset(args):
 def first_stage_model(checkpoint, device) -> VoxelNet:
     """The frozen VoxelNet at batch 1 and CAPACITY, returning the neck's
     map beside the head's; eval mode, no parameter requires a gradient."""
-    cap = CAPACITY
     state_dict = None if checkpoint is None else torch.load(
         checkpoint, map_location="cpu", weights_only=True)["model"]
     model = VoxelNet(num_input_features=5, batch_size=1, grid_shape=GRID,
-                     capacities=(cap, cap // 2, cap // 4, cap // 8),
+                     capacities=det_capacities(CAPACITY, 1),
                      return_bev=True, device=device,
                      generator=(torch.Generator().manual_seed(0)
                                 if state_dict is None else None))

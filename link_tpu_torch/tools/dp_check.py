@@ -669,12 +669,13 @@ def fitting_det_frame(seed: int, n_points: int = 150000) -> Dict:
 
 def det_job(world: int) -> Dict:
     """CenterPoint-ELKv3 float32 at the recipe's capacities for one frame
-    (163,840 / 2 / 4 / 8), one fitting frame a replica, det_train's
+    (`det_capacities(163840, 1)`), one fitting frame a replica, det_train's
     one-cycle Adam over a 20-epoch schedule of 4 steps an epoch."""
     from ..data import det_pipeline as dp
+    from ..models.scn import det_capacities
     from ..models.voxelnet import VoxelNet
     from .det_train import RECIPE
-    caps = tuple(max(1024, DET_CAPACITY // f) for f in (1, 2, 4, 8))
+    caps = det_capacities(DET_CAPACITY, 1)
     batches = [dp.collate_det([fitting_det_frame(r)], DET_CAPACITY)
                for r in range(world)]
     return {"name": "det", "step": "det", "seed": 0,

@@ -137,11 +137,11 @@ def _dcn_profiles(cs, repeats: int) -> list:
     from link_tpu_torch.data import det_pipeline as dp
     from link_tpu_torch.inference import DEFAULT_TEST_CFG
     from link_tpu_torch.models.center_head import decode_boxes, device_nms
+    from link_tpu_torch.models.scn import det_capacities
     from link_tpu_torch.models.voxelnet import VoxelNet
     from link_tpu_torch.tools import det_test
-    c = det_test.CAPACITY
     model = VoxelNet(batch_size=1, grid_shape=det_test.GRID,
-                     capacities=(c, c // 2, c // 4, c // 8),
+                     capacities=det_capacities(det_test.CAPACITY, 1),
                      dtype="bfloat16", dcn_head=True, device="cuda",
                      generator=torch.Generator().manual_seed(0)).eval()
     cfg = dict(DEFAULT_TEST_CFG)

@@ -10,7 +10,7 @@ tool's:
     one SGD step (lr 0.01) of the same model built with remat=True (the
     production step) on the same scans;
   * --det: CenterPoint-ELKv3 forward + box decode at the 160k-voxel cap
-    (capacities (cap, cap // 2, cap // 4, cap // 8), cap 163,840) on
+    (capacities `det_capacities(163840, 1)`) on
     synthetic nuScenes frames, in --dtype, with --dense-from L the hybrid
     dense backbone from level L;
   * --det --train: one det training step at the same cap (one-cycle Adam,
@@ -39,6 +39,7 @@ from ..data.nuscenes import SyntheticNuScenes
 from ..data.semantic_kitti import SyntheticSemanticKITTI, grid_extent
 from ..models.center_head import decode_boxes
 from ..models.linkunet import DEFAULT_CAPACITIES, ELKUNet
+from ..models.scn import det_capacities
 from ..models.voxelnet import VoxelNet
 from ..ops import kernels
 from ..sparse.tensor import make_sparse_tensor
@@ -81,10 +82,9 @@ def parse_args(argv=None):
 
 
 def _det_model(args, device, batch_size=1):
-    cap = DET_CAP * batch_size
     return VoxelNet(num_input_features=5, batch_size=batch_size,
                     grid_shape=DET_GRID,
-                    capacities=(cap, cap // 2, cap // 4, cap // 8),
+                    capacities=det_capacities(DET_CAP, batch_size),
                     dense_from_level=args.dense_from,
                     dtype=args.dtype or "float32", device=device,
                     generator=torch.Generator().manual_seed(0))

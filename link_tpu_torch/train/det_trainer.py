@@ -27,8 +27,9 @@ import torch
 
 from ..data.det_pipeline import det_inputs, det_targets
 from ..models.center_head import CODE_WEIGHTS, center_head_loss, decode_boxes
+from ..models.voxelnet import map_head_maps
 from ..parallel import all_reduce_mean, replica_tensors
-from ..utils.profiling import span
+from ..utils.profiling import LOSS_BWD, LOSS_FWD, BackwardSpan, span
 
 # profiler ranges of one train step (`utils.profiling.span`)
 RANGES = ("det_train/forward", "det_train/backward", "det_train/optimizer")
@@ -150,7 +151,14 @@ def det_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
         example = det_targets(batch, device)
         opt.zero_grad(set_to_none=True)
         preds = model(*inputs)
-        loss, logs = center_head_loss(preds, example, weight, code_weights)
+        with span(LOSS_FWD):
+            bwd = BackwardSpan(LOSS_BWD, *(v for d in preds
+                                           for v in d.values()))
+            if bwd.on:
+                preds = map_head_maps(preds, lambda *m: bwd.xs)
+            loss, logs = center_head_loss(preds, example, weight,
+                                          code_weights)
+            loss = bwd.out(loss)
     with span(RANGES[1]):
         loss.backward()
     metrics = {k: v.detach() for k, v in logs.items()}

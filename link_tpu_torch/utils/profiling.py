@@ -35,8 +35,10 @@ CONV_WGRAD = "conv/wgrad"      # a sparse conv's weight gradient
 PLAN = "sparse/plan"           # every kernel-map build (joins nest inside)
 ELK_FWD = "elk/forward"        # the ELK block (its convs and plans nest)
 ELK_BWD = "elk/backward"
-LOSS_FWD = "loss/forward"      # the segmentation criterion
+LOSS_FWD = "loss/forward"      # the criterion (seg, or the CenterHead's)
 LOSS_BWD = "loss/backward"
+BEV_FWD = "bev/forward"        # the dense BEV neck and the detection head
+BEV_BWD = "bev/backward"
 
 _OFF = contextlib.nullcontext()
 
@@ -67,28 +69,48 @@ class BackwardSpan:
     earlier) after. The view adds no device operation. Marked only
     while a profiler runs and `x` needs a gradient (else nothing would
     close the range): otherwise `x` and `y` pass through and the graph
-    gains no node."""
+    gains no node.
 
-    def __init__(self, name: str, x: torch.Tensor):
+    A region of several inputs and outputs (the detection head's maps)
+    takes them all: `BackwardSpan(name, *xs)` gives their views as
+    `bwd.xs`, and `bwd.out(*ys)` hooks each output's node; the range opens
+    at the first output node to run and closes once every input's view
+    that needs a gradient has run."""
+
+    def __init__(self, name: str, *xs: torch.Tensor):
         self.on = (profiling() and torch.is_grad_enabled()
-                   and x.requires_grad)
+                   and any(x.requires_grad for x in xs))
         self._name, self._open = name, []
+        self._inputs, self._closed = 0, 0
         if self.on:
-            x = x.view_as(x)
-            x.grad_fn.register_prehook(self._close_range)
-        self.x = x
+            views = []
+            for x in xs:
+                if x.requires_grad:
+                    x = x.view_as(x)
+                    x.grad_fn.register_prehook(self._close_range)
+                    self._inputs += 1
+                views.append(x)
+            xs = tuple(views)
+        self.xs = tuple(xs)
+        self.x = self.xs[0]
 
-    def out(self, y: torch.Tensor) -> torch.Tensor:
-        if self.on and y.grad_fn is not None:
-            y.grad_fn.register_prehook(self._open_range)
-        return y
+    def out(self, *ys: torch.Tensor):
+        if self.on:
+            for y in ys:
+                if y.grad_fn is not None:
+                    y.grad_fn.register_prehook(self._open_range)
+        return ys[0] if len(ys) == 1 else ys
 
     def _open_range(self, grad_outputs) -> None:
+        if self._open:
+            return                  # another output of an open region
+        self._closed = 0
         self._open.append(
             torch.ops.profiler._record_function_enter_new(self._name, None))
 
     def _close_range(self, grad_outputs) -> None:
-        if self._open:
+        self._closed += 1
+        if self._open and self._closed >= self._inputs:
             with torch._C.DisableTorchFunctionSubclass():
                 torch.ops.profiler._record_function_exit._RecordFunction(
                     self._open.pop())

@@ -28,6 +28,7 @@ from link_tpu.models import dcn as J
 from link_tpu.models.center_head import CenterHead as JCenterHead
 from link_tpu_torch.models import dcn as T
 from link_tpu_torch.models.center_head import CenterHead as TCenterHead
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.models.voxelnet import VoxelNet as TVoxelNet
 from link_tpu_torch.utils.convert import from_jax_center_head
 
@@ -304,7 +305,7 @@ def jax_dcn_voxelnet():
     from link_tpu.models.voxelnet import VoxelNet as JVoxelNet
     from test_torch_det_test_tool import GRID
     model = JVoxelNet(num_input_features=5, batch_size=1, grid_shape=GRID,
-                      capacities=(4096, 2048, 1024, 512), dcn_head=True)
+                      capacities=det_capacities(4096, 1), dcn_head=True)
     return jax.jit(lambda v, *a: model.apply(v, *a, False))
 
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from link_tpu.models.scn import SpMiddleResNetFHDELKv3 as JBackbone
 from link_tpu.utils.torch_import_det import translate_voxelnet
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.models.voxelnet import VoxelNet as TVoxelNet
 from link_tpu_torch.sparse import coords as tcoords
 from link_tpu_torch.sparse.dense_grid import DenseGrid
@@ -170,7 +171,7 @@ def jax_dense_voxelnet():
     from test_torch_det_test_tool import GRID as TOOL_GRID
     model = JVoxelNet(num_input_features=5, batch_size=1,
                       grid_shape=TOOL_GRID,
-                      capacities=(4096, 2048, 1024, 512), dense_from_level=2)
+                      capacities=det_capacities(4096, 1), dense_from_level=2)
     return jax.jit(lambda v, *a: model.apply(v, *a, False))
 
 

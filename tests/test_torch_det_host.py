@@ -50,6 +50,7 @@ from link_tpu.utils.torch_import_det import translate_voxelnet
 from link_tpu_torch import native
 from link_tpu_torch.data import det_pipeline as tdp
 from link_tpu_torch.inference import SingleFramePredictor as TPredictor
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.ops import nms as tnms
 from link_tpu_torch.tools import stream_inference
 from link_tpu_torch.train.checkpoint import save_checkpoint
@@ -222,6 +223,8 @@ def test_predictor_with_host_nms_matches_jax_and_the_numpy_path():
     sd = _shared_weights()
     tp = TPredictor(state_dict=sd, device="cpu", **TINY)
     jp = JPredictor(**TINY)
+    # the JAX predictor's model at the port's level capacities
+    jp.model = jp.model.clone(capacities=det_capacities(TINY["capacity"], 1))
     tr = translate_voxelnet({k: v.detach().clone().numpy()
                              for k, v in sd.items()})
     jp._vars = True                      # skip its own init: shared weights

@@ -49,6 +49,7 @@ from link_tpu.ops import nms as jnms
 from link_tpu.utils.torch_import_det import translate_voxelnet
 from link_tpu_torch import native
 from link_tpu_torch.inference import SingleFramePredictor as TPredictor
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.models import center_head as t_center_head
 from link_tpu_torch.models.center_head import device_nms as t_device_nms
 from link_tpu_torch.ops import kernels
@@ -479,6 +480,8 @@ def test_predictor_with_device_nms_matches_jax():
             sd[k] = torch.zeros_like(sd[k])
     tp = TPredictor(state_dict=sd, device="cpu", device_nms=True, **TINY)
     jp = JPredictor(device_nms=True, **TINY)
+    # the JAX predictor's model at the port's level capacities
+    jp.model = jp.model.clone(capacities=det_capacities(TINY["capacity"], 1))
     tr = translate_voxelnet({k: v.detach().clone().numpy()
                              for k, v in sd.items()})
     jp._vars = True                      # skip its own init: shared weights

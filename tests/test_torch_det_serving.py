@@ -28,6 +28,7 @@ from link_tpu.utils.torch_import_det import translate_voxelnet
 from link_tpu_torch.data import det_pipeline as tdp
 from link_tpu_torch.data import nuscenes as tnus
 from link_tpu_torch.inference import SingleFramePredictor as TPredictor
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.models.center_head import decode_boxes as t_decode
 from link_tpu_torch.ops import nms as tnms
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -139,6 +140,8 @@ def test_predictor_matches_jax_predictor():
             sd[k] = torch.zeros_like(sd[k])
     tp = TPredictor(state_dict=sd, device="cpu", **kw)
     jp = JPredictor(**kw)
+    # the JAX predictor's model at the port's level capacities
+    jp.model = jp.model.clone(capacities=det_capacities(kw["capacity"], 1))
     tr = translate_voxelnet({k: v.numpy() for k, v in sd.items()})
     jp._vars = True                      # skip its own init: shared weights
     jp._params, jp._bstats = tr["params"], tr["batch_stats"]

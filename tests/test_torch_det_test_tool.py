@@ -30,6 +30,7 @@ from link_tpu_torch.data import det_pipeline as dp
 from link_tpu_torch.data import nuscenes as tnus
 from link_tpu_torch.data.gt_aug import DataBaseSampler
 from link_tpu_torch.inference import masked_rows
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.models.voxelnet import VoxelNet
 from link_tpu_torch.tools import create_data, det_test, det_train, tta_fuse
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -120,7 +121,7 @@ def test_det_test_double_flip(tree, tiny):
     run = det_test.DetTest(args, "cpu")
     assert run.cap == 4 * 4096 and run.n_batch == 4
     one = VoxelNet(batch_size=1, grid_shape=GRID,
-                   capacities=(4096, 2048, 1024, 512), device="cpu")
+                   capacities=det_capacities(4096, 1), device="cpu")
     one.load_state_dict(run.model.state_dict())
     one.eval()
     s = det_test.make_dataset(args)[1]

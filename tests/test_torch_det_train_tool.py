@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from link_tpu_torch.data.nuscenes import SyntheticNuScenes
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.tools import det_train
 
 from torch_threads import one_torch_thread  # noqa: F401
@@ -112,7 +113,7 @@ def test_det_train_trains_a_dcn_head_config(tmp_path, tiny_frames):
     key = "bbox_head.tasks.0.feature_adapt_cls.conv_adaption.weight"
     assert key in sd and not any(".hm." in k for k in sd)
     init = det_train.VoxelNet(batch_size=2, grid_shape=(48, 48, 40),
-                              capacities=(8192, 4096, 2048, 1024),
+                              capacities=det_capacities(4096, 2),
                               dcn_head=True, device="cpu",
                               generator=torch.Generator().manual_seed(0))
     for k, v in init.state_dict().items():
@@ -131,7 +132,7 @@ def test_det_train_with_dense_from_level(tmp_path, tiny_frames):
     sd = torch.load(tmp_path / "run" / "latest.pt",
                     weights_only=True)["model"]
     init = det_train.VoxelNet(batch_size=2, grid_shape=(48, 48, 40),
-                              capacities=(8192, 4096, 2048, 1024),
+                              capacities=det_capacities(4096, 2),
                               device="cpu",
                               generator=torch.Generator().manual_seed(0))
     for k in ("backbone.conv3.0.conv1.weight", "backbone.down4.0.weight",

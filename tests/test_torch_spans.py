@@ -293,4 +293,5 @@ def test_span_readers_on_a_synthetic_trace(name, want):
     entry = {m["name"]: m for m in harness.benchmark()["per_layer"]}[name]
     assert entry["source"] == "device_trace"
     assert entry["moves"] == "train_samples_per_s"
-    assert entry["workloads"] == ["seg_train.linkunet.b2"]
+    assert entry["workloads"] == ["seg_train.linkunet.b2",
+                                  "det_train.elkv3.bf16.b2"]

@@ -47,6 +47,7 @@ from link_tpu_torch.data import det_pipeline as tdp
 from link_tpu_torch.data.nuscenes import SyntheticNuScenes
 from link_tpu_torch.inference import host_nms, masked_rows
 from link_tpu_torch.models import two_stage as T
+from link_tpu_torch.models.scn import det_capacities
 from link_tpu_torch.tools import det_test, det_train_two_stage
 from link_tpu_torch.train import det_trainer as TDT
 from link_tpu_torch.train import schedules as TS
@@ -316,7 +317,7 @@ def tiny_two_stage(monkeypatch, tiny):
 @pytest.fixture(scope="module")
 def jax_first_stage():
     model = JVoxelNet(num_input_features=5, batch_size=1, grid_shape=GRID,
-                      capacities=(4096, 2048, 1024, 512), return_bev=True)
+                      capacities=det_capacities(4096, 1), return_bev=True)
     return jax.jit(lambda v, *a: model.apply(v, *a, False))
 
 
